@@ -5,7 +5,8 @@
 
 Phases, none of whose failures is caught (any mismatch exits non-zero):
 
-1. the card's name and power limit; the build of ``sim_step.cu`` (seconds,
+1. the card's name and power limit; the three CUDA sources are built side
+   by side (one ``nvcc`` each); the build of ``sim_step.cu`` (seconds,
    and registers / spills per ``nvcc -Xptxas -v``; the kernel's shared
    memory is dynamic, so each case below prints its bytes per CTA);
 2. kernel vs plain: seeded caps_hms decodes (32 distinct, tiled to B=256)
@@ -19,7 +20,33 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
    objective, simulated by the kernel; launch count > 0, no int32 guard
    reroutes, archive periods re-checked with the event-driven simulator;
 4. Sobel under MRB_Explore (population 20, offspring 10, 3 generations):
-   the ``"cuda"`` and ``"events"`` fronts must be identical.
+   the ``"cuda"`` and ``"events"`` fronts must be identical;
+5. the builds of ``mrb_ring.cu`` and ``decode_attention.cu`` (seconds,
+   registers, spills and shared memory per ``-Xptxas -v``);
+6. the ring kernels vs their plain versions on the card: ``mrb_append``
+   exactly equal over the JAX package's sweep (float32 and bfloat16,
+   ω ∈ {0, 1, block−1, block, C−1}, mixed token types) and its wrap
+   sequence; ``mrb_decode_attention`` within 3e-5 (float32) and 2e-2
+   (bfloat16) on the JAX package's five cases and on ragged, G=16 and
+   C=1 cases; CUDA-event times of both at the served shape (over the 42
+   layers' rings, so L2 is cold as in the model) and at long shapes,
+   each beside its bytes bound at 3.35 TB/s, the plain version's time and
+   one PyTorch call's (``index_copy_``; ``scaled_dot_product_attention``
+   where there is no softcap);
+7. the serving main path at full width: Gemma-2 9B, bfloat16 weights and
+   cache, random weights from seed 0, B=4, a 32-token ``make_batch``
+   prompt, 32 greedy tokens, ring capacity 64, through
+   ``repro_torch.launch.serve.serve``; launch counts asserted, tokens in
+   range, logits finite, the kernel against the plain version on the live
+   rings of layer 0 (local) and layer 1 (global); init, prefill and
+   decode times beside the 5.5 ms weight-read floor, and a profiler
+   window of decode steps for the device's busy share;
+8. ring wrap, card vs CPU: Gemma-2 smoke with a 32-token window, B=4,
+   prompt 24, 48 greedy tokens, ring capacity 64; the card's run through
+   the kernels must give the CPU's plain run's logits within 1e-4 at every
+   step (TF32 off) and identical greedy tokens;
+9. Qwen3-0.6B at full width: B=4, prompt 32, 32 greedy tokens; launch
+   counts asserted, timings printed.
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -52,6 +79,22 @@ SOBEL_PATH = dict(population=20, offspring=10, generations=3, seed=0)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def kernel_modules():
+    """Kernel name → wrapper module holding its ``launches`` count."""
+    from repro_torch.kernels import decode_attention, mrb_ring, sim_step
+
+    return {"sim_step": sim_step, "mrb_append": mrb_ring, "mrb_decode_attention": decode_attention}
+
+
+def reset_counts():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
 def nvidia_smi_line() -> str:
@@ -222,7 +265,6 @@ def main_path_timing(device):
 
 def phase_main_path(device):
     from repro_torch.core import ExplorationProblem, NSGA2Explorer, multicamera, paper_architecture
-    from repro_torch.kernels import sim_step as kmod
     from repro_torch.sim import batched, simulate_period
 
     problem = ExplorationProblem(
@@ -242,12 +284,13 @@ def phase_main_path(device):
             last.update(t=now, decode=eng.decode_s, sim=eng.sim_s)
             log("phase main-path: generation", json.dumps(gens[-1]))
 
-        kmod.launches = 0
+        reset_counts()
         batched.int32_fallbacks = 0
         run = NSGA2Explorer(**MAIN_PATH).explore(
             problem, engine=eng, on_generation=on_generation
         )
-        launches, fallbacks = kmod.launches, batched.int32_fallbacks
+        counts, fallbacks = read_counts(), batched.int32_fallbacks
+        launches = counts["sim_step"]
         graph = eng._transformed(run.archive[0].genotype.xi)
     assert launches > 0, "the main path launched no sim_step kernel"
     assert fallbacks == 0, f"{fallbacks} phenotypes rerouted by the int32 guard"
@@ -256,7 +299,7 @@ def phase_main_path(device):
     for ind in run.archive[:4]:
         assert ind.objectives[0] == simulate_period(graph, problem.arch, ind.schedule), \
             "archived sim_period differs from the event-driven simulator"
-    summary = dict(launches=launches, int32_fallbacks=fallbacks, front=len(front),
+    summary = dict(launches=launches, counts=counts, int32_fallbacks=fallbacks, front=len(front),
                    evaluations=run.evaluations, wall_s=run.wall_s,
                    decode_s=eng.decode_s, sim_s=eng.sim_s)
     log("phase main-path:", json.dumps(summary))
@@ -279,6 +322,379 @@ def phase_sobel_fronts(device):
     log("phase sobel-fronts: identical,", len(fronts["cuda"]), "points")
 
 
+# ------------------------------------------------------------ ring kernels
+BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bfloat16 tensor-core rate (NVIDIA data sheet)
+F32_PEAK_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
+APPEND_CASES = (  # B, C, H, d, block: the JAX package's tests/test_kernels.py sweep
+    (1, 256, 2, 128, 128), (2, 512, 4, 128, 256), (2, 1024, 8, 64, 256),
+)
+ATTN_CASES = (  # B, C, kv, G, d, window, softcap, t
+    (2, 512, 4, 3, 128, 0, 0.0, 100),        # the JAX package's five: partial fill
+    (1, 512, 2, 8, 64, 128, 30.0, 700),      # wrap + window + softcap
+    (2, 256, 1, 12, 128, 0, 0.0, 255),       # exactly full
+    (1, 1024, 8, 2, 128, 512, 0.0, 2000),    # deep wrap + window
+    (1, 256, 2, 1, 128, 0, 0.0, 0),          # single token, G=1
+    (3, 100, 2, 5, 32, 0, 50.0, 250),        # ragged last tile, d=32
+    (2, 4113, 1, 16, 256, 4096, 50.0, 9000), # ragged, G=16, d=256, window
+    (2, 1, 1, 16, 256, 0, 0.0, 7),           # capacity 1
+)
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+GEMMA_LAYERS = 42
+TIMED_ATTN = (  # name, B, C, kv, G, d, window, softcap, t, rings cycled
+    ("served_local", 4, 64, 8, 2, 256, 4096, 50.0, 63, GEMMA_LAYERS),
+    ("served_global", 4, 64, 8, 2, 256, 0, 50.0, 63, GEMMA_LAYERS),
+    ("long_local", 16, 4096, 8, 2, 256, 4096, 50.0, 4096 + 5, 1),
+    ("long_global", 16, 32768, 8, 2, 256, 0, 50.0, 32768 + 5, 1),
+    ("qwen3_long", 16, 32768, 8, 2, 128, 0, 0.0, 32768 + 5, 1),
+)
+TIMED_APPEND = (  # name, B, C, H (kv heads), d, rings cycled; the served shape first
+    ("served", 4, 64, 8, 256, GEMMA_LAYERS),
+    ("long_local", 16, 4096, 8, 256, 1),
+    ("long_global", 16, 32768, 8, 256, 1),
+    ("qwen3_long", 16, 32768, 8, 128, 1),
+)
+SERVE = dict(batch=4, prompt_len=32, new_tokens=32, context=64, seed=0)
+WRAP = dict(batch=4, prompt_len=24, new_tokens=48, context=64, window=32)
+
+
+def randn(shape, dtype, device, gen, scale=1.0):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype).mul_(scale)
+
+
+def time_cycle(fn, n, reps, warmup=2):
+    """Mean ms per call of ``fn(i)``, i cycling over ``n`` inputs."""
+    it = iter(range(10 ** 9))
+    return time_ms(lambda: fn(next(it) % n), reps, warmup)
+
+
+def bound(nbytes, flops, peak_flops):
+    """(least ms, what bounds it) on an H100 SXM at its data-sheet rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_append(device):
+    """mrb_append vs its plain version over the sweep, mixed token types,
+    negative ω and the wrap sequence; exact.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.mrb_ring import mrb_append
+    from repro_torch.kernels.ref import mrb_append_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    n = 0
+    for B, C, H, d, block in APPEND_CASES:
+        for bdt in (torch.float32, torch.bfloat16):
+            for tdt in (torch.float32, torch.bfloat16):
+                buf = randn((B, C, H, d), bdt, device, gen)
+                tok = randn((B, 1, H, d), tdt, device, gen)
+                for omega in (0, 1, block - 1, block, C - 1, -1):
+                    om = torch.tensor(omega, dtype=torch.int32, device=device)
+                    got = mrb_append(buf.clone(), om, tok)
+                    want = mrb_append_ref(buf.clone(), om, tok)
+                    assert torch.equal(got, want), f"mrb_append differs at {(B, C, H, d, omega, bdt, tdt)}"
+                    n += 1
+    C = 8
+    ring = torch.zeros((1, C, 1, 128), device=device)
+    for i in range(C + 3):
+        mrb_append(ring, torch.tensor(i % C, dtype=torch.int32, device=device),
+                   torch.full((1, 1, 1, 128), float(i + 1), device=device))
+    want = torch.tensor([9, 10, 11, 4, 5, 6, 7, 8], dtype=torch.float32, device=device)
+    assert torch.equal(ring[0, :, 0, 0], want), "mrb_append wrap sequence"
+    torch.cuda.synchronize()
+    log(f"phase ring-kernels: mrb_append exact on {n} writes and the wrap sequence")
+    return 0.0
+
+
+def check_attention_case(case, dtype_name, device, seed=7):
+    """Kernel vs plain on one case; asserts the tolerance, returns max abs error."""
+    import torch
+    from repro_torch.kernels.decode_attention import mrb_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    B, C, kv, G, d, window, cap, t = case
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q = randn((B, kv * G, d), dt, device, gen, 0.3)
+    k = randn((B, C, kv, d), dt, device, gen, 0.3)
+    v = randn((B, C, kv, d), dt, device, gen, 0.3)
+    tt = torch.tensor(t, dtype=torch.int32, device=device)
+    got = mrb_decode_attention(q, k, v, tt, window=window, softcap=cap)
+    want = decode_attention_ref(q, k, v, tt, window, cap)
+    assert got.dtype == dt and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[dtype_name]
+    assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), \
+        f"mrb_decode_attention {case} {dtype_name}: max abs err {err}"
+    return err
+
+
+def valid_slots(C, t, window):
+    return min(C, t + 1, window if window > 0 else C)
+
+
+def time_attention(row, device):
+    """CUDA-event times of kernel, plain version and (without softcap) one
+    scaled_dot_product_attention call on the same rings; the bound counts
+    the valid slots' K/V, q, out and t."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import mrb_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    name, B, C, kv, G, d, window, cap, t, n = row
+    H, dt = kv * G, torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    q = randn((n, B, H, d), dt, device, gen, 0.3)
+    k = randn((n, B, C, kv, d), dt, device, gen, 0.3)
+    v = randn((n, B, C, kv, d), dt, device, gen, 0.3)
+    tt = torch.tensor(t, dtype=torch.int32, device=device)
+    big = n == 1
+    ms = time_cycle(lambda i: mrb_decode_attention(q[i], k[i], v[i], tt, window=window, softcap=cap),
+                    n, reps=10 if big else 5 * n)
+    plain_ms = time_cycle(lambda i: decode_attention_ref(q[i], k[i], v[i], tt, window, cap),
+                          n, reps=2 if big else n, warmup=1)
+    library_ms = None
+    if cap == 0:
+        slot = torch.arange(C, device=device)
+        pos = t - torch.remainder(t - slot, C)
+        ok = (pos >= 0) & ((pos > t - window) if window > 0 else True)
+        mask = ok.view(1, 1, 1, C)
+
+        def library(i):
+            return F.scaled_dot_product_attention(
+                q[i].view(B, H, 1, d), k[i].permute(0, 2, 1, 3), v[i].permute(0, 2, 1, 3),
+                attn_mask=mask, enable_gqa=True)
+
+        ref = mrb_decode_attention(q[0], k[0], v[0], tt, window=window, softcap=cap)
+        assert torch.allclose(library(0).reshape(B, H, d).float(), ref.float(), atol=2e-2, rtol=2e-2), \
+            f"{name}: scaled_dot_product_attention computes another function"
+        library_ms = time_cycle(library, n, reps=10 if big else 5 * n)
+    cv = valid_slots(C, t, window)
+    nbytes = 2 * B * H * d * 2 + 2 * B * cv * kv * d * 2 + 4
+    bound_ms, bound_by = bound(nbytes, 4 * B * H * cv * d, BF16_PEAK_FLOPS)
+    out = dict(shape=name, B=B, C=C, kv=kv, G=G, d=d, window=window, softcap=cap, t=t,
+               rings=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+               bound_ms=bound_ms, bound_by=bound_by, bytes_per_s=nbytes / (ms * 1e-3))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_append(row, device):
+    """mrb_append (bfloat16) at one of TIMED_APPEND's shapes, cycling over
+    ``rings`` rings; ω sits mid-ring."""
+    import torch
+    from repro_torch.kernels.mrb_ring import mrb_append
+    from repro_torch.kernels.ref import mrb_append_ref
+
+    name, B, C, H, d, n = row
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    buf = randn((n, B, C, H, d), torch.bfloat16, device, gen)
+    tok = randn((n, B, 1, H, d), torch.bfloat16, device, gen)
+    om = torch.tensor(C // 2 + 5, dtype=torch.int32, device=device)
+    om_long = om.long().reshape(1)
+    reps = max(5 * n, 50)
+    ms = time_cycle(lambda i: mrb_append(buf[i], om, tok[i]), n, reps=reps)
+    plain_ms = time_cycle(lambda i: mrb_append_ref(buf[i], om, tok[i]), n, reps=reps)
+    library_ms = time_cycle(lambda i: buf[i].index_copy_(1, om_long, tok[i]), n, reps=reps)
+    nbytes = 2 * B * H * d * 2 + 4
+    bound_ms, bound_by = bound(nbytes, 0, BF16_PEAK_FLOPS)
+    del buf, tok
+    torch.cuda.empty_cache()
+    return dict(shape=name, B=B, C=C, H=H, d=d, rings=n, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_ring_kernels(device):
+    append_err = check_append(device)
+    attn_err = 0.0
+    for case in ATTN_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            err = check_attention_case(case, dtype_name, device)
+            attn_err = max(attn_err, err)
+            log(f"phase ring-kernels: mrb_decode_attention {case} {dtype_name}: max abs err {err:.3e}")
+    append_rows = []
+    for row in TIMED_APPEND:
+        append_rows.append(time_append(row, device))
+        log("phase ring-kernels: mrb_append timing", json.dumps(append_rows[-1]))
+    attn_rows = []
+    for row in TIMED_ATTN:
+        attn_rows.append(time_attention(row, device))
+        log("phase ring-kernels: mrb_decode_attention timing", json.dumps(attn_rows[-1]))
+    return append_err, attn_err, append_rows[0], attn_rows
+
+
+def live_ring_check(model, state, device):
+    """The kernel against the plain version on the live rings of layer 0
+    (local) and layer 1 (global) after a serving run."""
+    import torch
+    from repro_torch.kernels.decode_attention import mrb_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    cfg = model.cfg
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    layers = state["layers"]
+    errs = []
+    for l in (0, 1):
+        q = randn((layers["k"].shape[1], cfg.n_heads, cfg.resolved_head_dim),
+                  layers["k"].dtype, device, gen, 0.3)
+        t = layers["t"][l] - 1  # the last written position
+        args = (q, layers["k"][l], layers["v"][l], t)
+        got = mrb_decode_attention(*args, window=model.windows[l], softcap=cfg.attn_softcap)
+        want = decode_attention_ref(*args, model.windows[l], cfg.attn_softcap)
+        err = float((got.float() - want.float()).abs().max())
+        assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2), \
+            f"live ring of layer {l}: max abs err {err}"
+        errs.append(err)
+    return errs
+
+
+def profile_decode(model, state, steps=3):
+    """Device busy share and the top kernels over ``steps`` decode steps,
+    from torch.profiler's CUDA kernel events (None where it saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import make_serve_step
+
+    step = make_serve_step(model.cfg)
+    tok = torch.zeros((state["layers"]["k"].shape[1], 1), dtype=torch.int32, device=model.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, _, state = step(model, tok, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ours = {}
+    for key, tag in (("mrb_append", "mrb_append_kernel"),
+                     ("mrb_decode_attention", "decode_attention_kernel")):
+        durs = [e.time_range.elapsed_us() for e in kernels if tag in e.name]
+        ours[key] = dict(launches_per_step=len(durs) / steps,
+                         device_ms_per_launch=sum(durs) / max(len(durs), 1) / 1e3)
+    return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+                device_busy_ms_per_step=busy_us / steps / 1e3, busy_share=busy_us / wall_us,
+                kernels_per_step=len(kernels) / steps, ours=ours,
+                top=[(n[:60], us / steps / 1e3) for n, us in top])
+
+
+def phase_serving(device):
+    """Gemma-2 9B at full width through the port's serve(); asserts the
+    launch counts, the outputs and the live rings."""
+    import torch
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve("gemma2-9b", device=device, **SERVE)
+    counts = read_counts()
+    model, state = res["model"], res["state"]
+    cfg = model.cfg
+    steps = SERVE["prompt_len"] + SERVE["new_tokens"]
+    assert counts["mrb_append"] == 2 * cfg.n_layers * steps, counts
+    assert counts["mrb_decode_attention"] == cfg.n_layers * steps, counts
+    assert counts["sim_step"] == 0, counts
+    gen = res["generated"]
+    assert tuple(gen.shape) == (SERVE["batch"], SERVE["new_tokens"])
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab, "tokens out of range"
+    assert torch.isfinite(res["last_logits"]).all(), "non-finite logits"
+    assert state["layers"]["t"].tolist() == [steps] * cfg.n_layers
+    live = live_ring_check(model, state, device)
+    floor_ms = cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3
+    summary = dict(res["summary"], launches=counts, weight_floor_ms=floor_ms,
+                   params=cfg.param_count(), live_ring_err=live,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   first_tokens=gen[0, :8].tolist())
+    log("phase serving:", json.dumps(summary))
+    prof = profile_decode(model, state)
+    if prof:  # the profiler slows the host; the unprofiled step is the wall to compare with
+        prof["busy_share_of_unprofiled_step"] = (
+            prof["device_busy_ms_per_step"] / summary["decode_ms_per_step"])
+    log("phase serving: profile", json.dumps(prof) if prof else "device busy share: not measured")
+    del res, model, state
+    torch.cuda.empty_cache()
+    return summary, prof
+
+
+def phase_ring_wrap(device):
+    """Card (kernels) vs CPU (plain versions) on the same weights and
+    prompt, with the ring wrapping; float32 throughout, TF32 off."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+
+    cfg = get_config("gemma2-9b").smoke.replace(sliding_window=WRAP["window"])
+    host_model = init_model(cfg, seed=0, device="cpu")
+    card_model = copy.deepcopy(host_model).to(device)
+    prompt = make_batch(cfg, WRAP["prompt_len"], WRAP["batch"], device="cpu")["tokens"]
+    n_new, ctx = WRAP["new_tokens"], WRAP["context"]
+    reset_counts()
+    card = generate(card_model, prompt.to(device), n_new, ctx, keep_logits=True)
+    counts = read_counts()
+    host = generate(host_model, prompt, n_new, ctx, keep_logits=True)
+    steps = WRAP["prompt_len"] + n_new
+    assert counts["mrb_append"] == 2 * cfg.n_layers * steps, counts
+    assert counts["mrb_decode_attention"] == cfg.n_layers * steps, counts
+    assert torch.equal(card["generated"].cpu(), host["generated"]), "greedy tokens differ"
+    err = 0.0
+    for a, b in zip(card["logits"], host["logits"]):
+        a = a.cpu()
+        err = max(err, float((a - b).abs().max()))
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4), f"logits differ by {err}"
+    assert len(card["logits"]) == steps
+    out = dict(steps=steps, ring_capacity=ctx, window=cfg.sliding_window,
+               max_abs_logit_err=err, tokens_identical=True, launches=counts)
+    log("phase ring-wrap:", json.dumps(out))
+    return out
+
+
+def phase_qwen3(device):
+    import torch
+    from repro_torch.launch.serve import serve
+
+    reset_counts()
+    res = serve("qwen3-0.6b", device=device, **SERVE)
+    counts = read_counts()
+    cfg = res["model"].cfg
+    steps = SERVE["prompt_len"] + SERVE["new_tokens"]
+    assert counts["mrb_append"] == 2 * cfg.n_layers * steps, counts
+    assert counts["mrb_decode_attention"] == cfg.n_layers * steps, counts
+    gen = res["generated"]
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab, "tokens out of range"
+    assert torch.isfinite(res["last_logits"]).all(), "non-finite logits"
+    floor_ms = cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3
+    summary = dict(res["summary"], launches=counts, weight_floor_ms=floor_ms,
+                   params=cfg.param_count())
+    log("phase qwen3:", json.dumps(summary))
+    del res
+    torch.cuda.empty_cache()
+    return summary
+
+
+def ptxas_lines(info):
+    return [ln.strip() for ln in info["ptxas"].splitlines()
+            if re.search(r"registers|smem|spill|Compiling entry", ln)]
+
+
 def main() -> int:
     import torch
 
@@ -287,29 +703,62 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch import resolve_device
+    from repro_torch.kernels import _build, decode_attention, mrb_ring
     from repro_torch.kernels import sim_step as kmod
 
     device = resolve_device("cuda")
+    # float32 matmuls and convolutions in full float32 (phase 8 compares
+    # the card with the CPU at 1e-4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     log(nvidia_smi_line())
-    log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
-    kmod.build()
-    ptxas = [ln.strip() for ln in kmod.build_info["ptxas"].splitlines()
-             if re.search(r"registers|smem|spill", ln)]
-    log(f"build sim_step.cu: {kmod.build_info['seconds']:.2f} s;", " | ".join(ptxas))
+    log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda,
+        "| TF32 off")
+    t0 = time.perf_counter()
+    _build.build_all([kmod.LIBRARY, mrb_ring.LIBRARY, decode_attention.LIBRARY])
+    log(f"build: three sources side by side in {time.perf_counter() - t0:.2f} s")
+    log(f"build sim_step.cu: {kmod.build_info['seconds']:.2f} s;",
+        " | ".join(ptxas_lines(kmod.build_info)))
 
     rows, max_err = phase_kernel_vs_plain(device)
     main_row = main_path_timing(device)
     main = phase_main_path(device)
     phase_sobel_fronts(device)
 
-    kernels = [dict(
-        name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
-        replaces="src/repro/kernels/sim_step.py:41", launches=main["launches"],
-        max_abs_err=max(max_err, main_row["max_abs_err"]), ms=main_row["ms"],
-        plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"], bound_by="bytes",
-        library_ms=None,
-    )]
+    for lib in (mrb_ring.LIBRARY, decode_attention.LIBRARY):
+        log(f"phase build {os.path.basename(lib.source)}: {lib.info['seconds']:.2f} s;",
+            " | ".join(ptxas_lines(lib.info)))
+    smem = decode_attention.LIBRARY.load().decode_attention_smem_bytes
+    log("phase build: decode_attention dynamic shared memory per CTA:",
+        {f"G={G},d={d},{name}": smem(G, d, elt) for G, d in ((2, 256), (2, 128), (16, 256))
+         for name, elt in (("bf16", 2), ("f32", 4))})
+    append_err, attn_err, append_row, attn_rows = phase_ring_kernels(device)
+    serving, _ = phase_serving(device)
+    phase_ring_wrap(device)
+    phase_qwen3(device)
+
+    served = attn_rows[0]
+    kernels = [
+        dict(name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
+             replaces="src/repro/kernels/sim_step.py:41", launches=main["launches"],
+             max_abs_err=max(max_err, main_row["max_abs_err"]), ms=main_row["ms"],
+             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"], bound_by="bytes",
+             library_ms=None),
+        dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
+             replaces="src/repro/kernels/mrb_ring.py:35",
+             launches=serving["launches"]["mrb_append"], max_abs_err=append_err,
+             ms=append_row["ms"], plain_ms=append_row["plain_ms"],
+             bound_ms=append_row["bound_ms"], bound_by=append_row["bound_by"],
+             library_ms=append_row["library_ms"]),
+        dict(name="mrb_decode_attention", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:82",
+             launches=serving["launches"]["mrb_decode_attention"],
+             max_abs_err=max([attn_err] + serving["live_ring_err"]),
+             ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
+             bound_by=served["bound_by"], library_ms=served["library_ms"]),
+    ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,21 +1,28 @@
 """Carry the JAX package's serialized state over to the port's objects.
 
-The system has no weights: its state is the application graph, the
-architecture, a decoded schedule and the exploration problem, all of which
-both packages serialize to plain JSON-safe dicts.  These functions take
-those dicts and return the port's objects, so a test can build state with
-the reference, carry it across, and compare — without the port importing
-the reference.
+The exploration's state is the application graph, the architecture, a
+decoded schedule and the exploration problem, all of which both packages
+serialize to plain JSON-safe dicts.  The serving substrate's state is the
+model's parameter tree and the decode cache, carried as numpy arrays (JAX
+stacks the layers on axis 0).  These functions take those and return the
+port's objects, so a test can build state with the reference, carry it
+across, and compare — without the port importing the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
 
 from .core.architecture import ArchitectureGraph
 from .core.explorers import ExplorationRun
 from .core.graph import ApplicationGraph
 from .core.problem import ExplorationProblem
 from .core.schedule import Schedule
+from .device import resolve_device
+from .models.config import ModelConfig
+from .models.model import DecoderLM
 
 __all__ = [
     "graph_from_dict",
@@ -23,6 +30,9 @@ __all__ = [
     "schedule_from_json",
     "problem_from_json",
     "run_from_json",
+    "params_from_jax",
+    "decode_state_from_jax",
+    "decode_state_to_numpy",
 ]
 
 Json = Union[str, Dict[str, Any]]
@@ -51,3 +61,73 @@ def problem_from_json(d: Json) -> ExplorationProblem:
 def run_from_json(d: Json) -> ExplorationRun:
     """An ``ExplorationRun.to_json()``: problem, archive and trajectory."""
     return ExplorationRun.from_json(d)
+
+
+def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
+    """A copy of ``a`` on ``device``: never a view of the caller's array,
+    since the port updates its decode state in place."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> DecoderLM:
+    """The JAX ``init_model(rng, cfg)`` tree, leaves as numpy arrays, as the
+    port's :class:`~repro_torch.models.model.DecoderLM`.  Layer ``l`` of the
+    stacked ``blocks`` tree becomes ``blocks.<l>``; keys, shapes and dtypes
+    must match exactly."""
+    model = DecoderLM(cfg, device=resolve_device(device))
+    flat = _flatten(tree)
+    want = set()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("blocks."):
+                _, layer, rest = name.split(".", 2)
+                key = f"blocks.{rest}"
+                src = np.asarray(flat[key])[int(layer)] if key in flat else None
+            else:
+                key = name
+                src = flat.get(key)
+            want.add(key)
+            if src is None:
+                raise KeyError(f"params_from_jax: the JAX tree has no {key!r}")
+            x = _to_torch(src, p.device)
+            if tuple(x.shape) != tuple(p.shape) or x.dtype != p.dtype:
+                raise ValueError(
+                    f"params_from_jax: {name} is {tuple(x.shape)} {x.dtype}, "
+                    f"expected {tuple(p.shape)} {p.dtype}"
+                )
+            p.copy_(x)
+    extra = set(flat) - want
+    if extra:
+        raise KeyError(f"params_from_jax: the port has no parameters for {sorted(extra)}")
+    return model
+
+
+def decode_state_from_jax(state: Mapping, *, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``init_decode_state``/``decode_step`` cache (``layers`` with
+    ``k``, ``v`` [L, B, C, kv, d], ``omega``, ``t`` [L]), leaves as numpy
+    arrays, as the port's decode state (copies, on ``device``)."""
+    dev = resolve_device(device)
+    return {"layers": {k: _to_torch(v, dev) for k, v in state["layers"].items()}}
+
+
+def decode_state_to_numpy(state: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's decode state as numpy arrays (bfloat16 widened to float32)."""
+    def arr(x: torch.Tensor) -> np.ndarray:
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    return {"layers": {k: arr(v) for k, v in state["layers"].items()}}

@@ -33,6 +33,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kRead = 0;
@@ -40,10 +42,7 @@ constexpr int kWrite = 2;
 constexpr int kNeg = -1;
 constexpr int kI32Inf = 0x7fffffff;
 
-__device__ __forceinline__ int floor_mod(int a, int m) {  // m >= 1
-  int r = a % m;
-  return (r != 0 && ((r < 0) != (m < 0))) ? r + m : r;
-}
+using repro_torch::floor_mod;
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));

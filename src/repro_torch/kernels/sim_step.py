@@ -6,9 +6,8 @@ simulation of one phenotype per CTA, state resident in shared memory and
 registers, firing times written straight to global memory.  What bounds it
 and how its design answers that is noted at the top of the CUDA source.
 
-The source is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-into ``build/repro_torch/`` (or ``$REPRO_TORCH_BUILD_DIR``) at first use,
-keyed by a hash of the source, and bound with ``ctypes`` through a plain
+The source is compiled and bound by :mod:`._build` at first use: ``nvcc``
+for ``sm_90a`` into ``build/repro_torch/``, ``ctypes``, a plain
 ``extern "C"`` launcher that returns ``cudaGetLastError()``.
 
 :func:`sim_step` takes the compact lowering
@@ -20,93 +19,32 @@ tensors it launches the kernel or raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Optional
 
 import torch
 
 from ..sim.batched import SimTables, simulate_plain
+from ._build import CudaLibrary
 
-__all__ = ["sim_step", "build", "launches", "build_info", "SOURCE"]
+__all__ = ["sim_step", "build", "launches", "build_info", "LIBRARY"]
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "sim_step.cu")
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(__file__))))
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sim_step_launch.argtypes = [p] * 13 + [i] * 10 + [p]
+    lib.sim_step_launch.restype = i
+    lib.sim_step_smem_bytes.argtypes = [i] * 4
+    lib.sim_step_smem_bytes.restype = ctypes.c_size_t
+
+
+LIBRARY = CudaLibrary("sim_step", _bind)
+# build() compiles (once) and loads the library; build_info holds its
+# path, build seconds and nvcc's -Xptxas -v report.
+build = LIBRARY.load
+build_info = LIBRARY.info
 
 # Kernel launches made by sim_step (plain-version calls are not counted).
 launches = 0
-# Filled by build(): library path, build seconds (0.0 when the library was
-# already built), and nvcc's -Xptxas -v report (registers, shared memory).
-build_info: dict = {}
-
-_LIB = None
-_LOCK = threading.Lock()
-
-
-def _build_dir() -> str:
-    return os.environ.get(
-        "REPRO_TORCH_BUILD_DIR", os.path.join(_REPO_ROOT, "build", "repro_torch")
-    )
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the sim_step kernel is built on the GPU host")
-
-
-def build():
-    """Compile (if needed) and load the kernel library; returns the
-    ``ctypes`` handle.  Thread-safe; the build runs once per source hash."""
-    global _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out_dir = _build_dir()
-        lib_path = os.path.join(out_dir, f"sim_step_{digest}.so")
-        log_path = lib_path + ".log"
-        seconds = 0.0
-        if not os.path.exists(lib_path):
-            os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True, text=True,
-            )
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            with open(log_path, "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(lib_path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sim_step_launch.argtypes = [p] * 13 + [i] * 10 + [p]
-        lib.sim_step_launch.restype = i
-        lib.sim_step_error_string.argtypes = [i]
-        lib.sim_step_error_string.restype = ctypes.c_char_p
-        lib.sim_step_smem_bytes.argtypes = [i] * 4
-        lib.sim_step_smem_bytes.restype = ctypes.c_size_t
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                log = f.read()
-        build_info.update(path=lib_path, seconds=seconds, ptxas=log)
-        _LIB = lib
-        return lib
 
 
 _STATIC = (("kind", torch.int8), ("chan", torch.int16), ("slot", torch.int8),
@@ -170,9 +108,6 @@ def sim_step(tab: SimTables, K: int, k_max: int, ports: Optional[int]):
         -1 if ports is None else int(ports),
         ctypes.c_void_p(stream),
     )
-    if err != 0:
-        raise RuntimeError(
-            f"sim_step launch failed: {lib.sim_step_error_string(err).decode()} ({err})"
-        )
+    LIBRARY.check(err, "sim_step")
     launches += 1
     return fire, dead, horizon

@@ -1,12 +1,15 @@
-"""The CUDA ``sim_step`` kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips (decided in a
 fixture, never at import).  Run on the card with
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-The cases are those of ``chip_smoke.py``'s kernel-vs-plain phase, at their
-32 distinct decodes.  This file imports no JAX: the card's host has none.
+The cases are those of ``chip_smoke.py``: ``sim_step``'s kernel-vs-plain
+phase at its 32 distinct decodes, and the ring kernels' sweeps (exact for
+``mrb_append``; 3e-5 float32 and 2e-2 bfloat16 for
+``mrb_decode_attention``).  This file imports no JAX: the card's host has
+none.
 """
 import os
 import sys
@@ -65,3 +68,64 @@ def test_wrapper_rejects_bad_inputs(device):
         kmod.sim_step(bad, 16, 16, None)
     with pytest.raises(ValueError):
         kmod.sim_step(tab, 32, 16, None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.ATTN_CASES, ids=str)
+def test_decode_attention_kernel_matches_plain(device, case, dtype):
+    from repro_torch.kernels import decode_attention as kattn
+
+    before = kattn.launches
+    chip_smoke.check_attention_case(case, dtype, device)
+    assert kattn.launches == before + 1
+
+
+def test_mrb_append_kernel_matches_plain(device):
+    from repro_torch.kernels import mrb_ring as kring
+
+    before = kring.launches
+    chip_smoke.check_append(device)
+    assert kring.launches > before
+
+
+def test_ring_wrappers_reject_bad_inputs(device):
+    from repro_torch.kernels import ring_append, ring_decode_attention
+
+    buf = torch.zeros((2, 8, 2, 32), device=device)
+    tok = torch.zeros((2, 1, 2, 32), device=device)
+    om = torch.zeros((), dtype=torch.int32, device=device)
+    with pytest.raises(TypeError):
+        ring_append(buf.half(), om, tok)
+    with pytest.raises(TypeError):
+        ring_append(buf, om.long(), tok)
+    with pytest.raises(ValueError):
+        ring_append(buf[:, ::2], om, tok)  # not contiguous
+    with pytest.raises(ValueError):
+        ring_append(buf, om.cpu(), tok)
+    with pytest.raises(ValueError):
+        ring_append(buf, om, tok[:, :, :1])
+
+    q = torch.zeros((2, 4, 32), device=device)
+    with pytest.raises(TypeError):
+        ring_decode_attention(q.half(), buf, buf, om)
+    with pytest.raises(ValueError):
+        ring_decode_attention(q, buf, buf, om.cpu())  # t on another device
+    with pytest.raises(ValueError):
+        ring_decode_attention(q, buf.transpose(1, 2).contiguous().transpose(1, 2), buf, om)
+    with pytest.raises(ValueError):
+        ring_decode_attention(torch.zeros((2, 34, 32), device=device), buf, buf, om)  # G=17
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 4, 1, 512), device=device)
+        ring_decode_attention(torch.zeros((1, 1, 512), device=device), big, big, om)
+
+
+def test_serving_on_the_card_matches_the_cpu(device):
+    """Gemma-2 smoke with the ring wrapping: kernels on the card, plain
+    versions on the CPU, same logits (1e-4, TF32 off) and tokens."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = chip_smoke.phase_ring_wrap(device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out["tokens_identical"]
