@@ -28,8 +28,13 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
    ω ∈ {0, 1, block−1, block, C−1}, mixed token types) and its wrap
    sequence; ``mrb_decode_attention`` within 3e-5 (float32) and 2e-2
    (bfloat16) on the JAX package's five cases and on ragged, G=16 and
-   C=1 cases; CUDA-event times of both at the served shape (over the 42
-   layers' rings, so L2 is cold as in the model) and at long shapes,
+   C=1 cases and on split-edge cases (window far below C, a partial fill
+   that leaves nearly every split empty, ragged G=16), also against the
+   plain split-and-merge at the kernel's own cluster size; CUDA-event
+   times of both at the served shape (over the 42 layers' rings, so L2 is
+   cold as in the model) and at long shapes (a Gemma-2 local layer in a
+   32k cache and G=16 among them), each with its cluster size and shared
+   memory,
    each beside its bytes bound at 3.35 TB/s, the plain version's time and
    one PyTorch call's (``index_copy_``; ``scaled_dot_product_attention``
    where there is no softcap);
@@ -100,6 +105,16 @@ def read_counts():
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_clocks() -> str:
+    """SM and memory clocks, power draw and temperature, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -337,6 +352,9 @@ ATTN_CASES = (  # B, C, kv, G, d, window, softcap, t
     (3, 100, 2, 5, 32, 0, 50.0, 250),        # ragged last tile, d=32
     (2, 4113, 1, 16, 256, 4096, 50.0, 9000), # ragged, G=16, d=256, window
     (2, 1, 1, 16, 256, 0, 0.0, 7),           # capacity 1
+    (1, 32768, 2, 2, 128, 64, 0.0, 40000),   # window << C: a few tiles of a long ring
+    (2, 32768, 1, 4, 256, 0, 50.0, 10),      # partial fill: nearly all splits empty
+    (1, 4113, 8, 16, 256, 0, 0.0, 4200),     # ragged, G=16, no window
 )
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 GEMMA_LAYERS = 42
@@ -346,6 +364,8 @@ TIMED_ATTN = (  # name, B, C, kv, G, d, window, softcap, t, rings cycled
     ("long_local", 16, 4096, 8, 2, 256, 4096, 50.0, 4096 + 5, 1),
     ("long_global", 16, 32768, 8, 2, 256, 0, 50.0, 32768 + 5, 1),
     ("qwen3_long", 16, 32768, 8, 2, 128, 0, 0.0, 32768 + 5, 1),
+    ("local_in_32k", 16, 32768, 8, 2, 256, 4096, 50.0, 32768 + 5, 1),  # Gemma-2 local layer, 32k cache
+    ("g16_4k", 16, 4096, 8, 16, 256, 0, 0.0, 4096 + 5, 1),  # the most readers a kv head may have
 )
 TIMED_APPEND = (  # name, B, C, H (kv heads), d, rings cycled; the served shape first
     ("served", 4, 64, 8, 256, GEMMA_LAYERS),
@@ -410,10 +430,11 @@ def check_append(device):
 
 
 def check_attention_case(case, dtype_name, device, seed=7):
-    """Kernel vs plain on one case; asserts the tolerance, returns max abs error."""
+    """Kernel vs plain on one case, and vs the plain split-and-merge at the
+    kernel's own cluster size; asserts the tolerance, returns max abs error."""
     import torch
-    from repro_torch.kernels.decode_attention import mrb_decode_attention
-    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention import launch_plan, mrb_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref, decode_attention_split_ref
 
     B, C, kv, G, d, window, cap, t = case
     dt = getattr(torch, dtype_name)
@@ -425,11 +446,15 @@ def check_attention_case(case, dtype_name, device, seed=7):
     tt = torch.tensor(t, dtype=torch.int32, device=device)
     got = mrb_decode_attention(q, k, v, tt, window=window, softcap=cap)
     want = decode_attention_ref(q, k, v, tt, window, cap)
+    plan = launch_plan(q, k, window=window)
+    split = decode_attention_split_ref(q, k, v, tt, window, cap, plan["splits"], plan["tile"])
     assert got.dtype == dt and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     tol = ATTN_TOL[dtype_name]
     assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), \
         f"mrb_decode_attention {case} {dtype_name}: max abs err {err}"
+    assert torch.allclose(got.float(), split.float(), atol=tol, rtol=tol), \
+        f"mrb_decode_attention {case} {dtype_name}: differs from the split-and-merge plain version"
     return err
 
 
@@ -440,10 +465,11 @@ def valid_slots(C, t, window):
 def time_attention(row, device):
     """CUDA-event times of kernel, plain version and (without softcap) one
     scaled_dot_product_attention call on the same rings; the bound counts
-    the valid slots' K/V, q, out and t."""
+    the valid slots' K/V, q, out and t.  Also the cluster size, shared
+    memory per CTA and tile the kernel is launched with."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import mrb_decode_attention
+    from repro_torch.kernels.decode_attention import launch_plan, mrb_decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
 
     name, B, C, kv, G, d, window, cap, t, n = row
@@ -479,8 +505,9 @@ def time_attention(row, device):
     nbytes = 2 * B * H * d * 2 + 2 * B * cv * kv * d * 2 + 4
     bound_ms, bound_by = bound(nbytes, 4 * B * H * cv * d, BF16_PEAK_FLOPS)
     out = dict(shape=name, B=B, C=C, kv=kv, G=G, d=d, window=window, softcap=cap, t=t,
-               rings=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-               bound_ms=bound_ms, bound_by=bound_by, bytes_per_s=nbytes / (ms * 1e-3))
+               rings=n, **launch_plan(q[0], k[0], window=window), ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+               bytes_per_s=nbytes / (ms * 1e-3))
     del q, k, v
     torch.cuda.empty_cache()
     return out
@@ -528,6 +555,7 @@ def phase_ring_kernels(device):
     for row in TIMED_ATTN:
         attn_rows.append(time_attention(row, device))
         log("phase ring-kernels: mrb_decode_attention timing", json.dumps(attn_rows[-1]))
+    log("phase ring-kernels: clocks after the timings:", nvidia_smi_clocks())
     return append_err, attn_err, append_rows[0], attn_rows
 
 
@@ -739,6 +767,7 @@ def main() -> int:
     phase_qwen3(device)
 
     served = attn_rows[0]
+    qwen3_long = next(r for r in attn_rows if r["shape"] == "qwen3_long")
     kernels = [
         dict(name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
              replaces="src/repro/kernels/sim_step.py:41", launches=main["launches"],
@@ -757,7 +786,8 @@ def main() -> int:
              launches=serving["launches"]["mrb_decode_attention"],
              max_abs_err=max([attn_err] + serving["live_ring_err"]),
              ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
-             bound_by=served["bound_by"], library_ms=served["library_ms"]),
+             bound_by=served["bound_by"], library_ms=served["library_ms"],
+             qwen3_long={key: qwen3_long[key] for key in ("ms", "library_ms", "bound_ms")}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

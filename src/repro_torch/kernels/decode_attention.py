@@ -1,11 +1,14 @@
 """Wrapper of the CUDA multi-reader decode attention (``csrc/decode_attention.cu``).
 
 Replaces the JAX package's Pallas kernel
-``src/repro/kernels/decode_attention.py::mrb_decode_attention``: one CTA
-per (batch row, kv head) stages each K/V tile of the ring in shared memory
-once for all G = H / kv query-head readers, with an online softmax over
-the capacity.  What bounds it and how its design answers that is noted at
-the top of the CUDA source.
+``src/repro/kernels/decode_attention.py::mrb_decode_attention``: a
+thread-block cluster per (batch row, kv head) splits the readable
+positions of the ring over its CTAs; each stages its K/V tiles in shared
+memory once for all G = H / kv query-head readers through a pipeline of
+``cp.async`` copies, and the cluster merges the float32 partials over
+distributed shared memory.  What bounds it and how its design answers
+that is noted at the top of the CUDA source; :func:`launch_plan` reports
+the cluster size and shared memory a shape is launched with.
 
 On CPU tensors :func:`mrb_decode_attention` runs the plain version,
 :func:`~repro_torch.kernels.ref.decode_attention_ref`; on CUDA tensors it
@@ -22,7 +25,9 @@ from ._build import CudaLibrary
 from .mrb_ring import DTYPE_CODES
 from .ref import decode_attention_ref
 
-__all__ = ["mrb_decode_attention", "launches", "LIBRARY", "MAX_READERS", "MAX_HEAD_DIM"]
+__all__ = [
+    "mrb_decode_attention", "launch_plan", "launches", "LIBRARY", "MAX_READERS", "MAX_HEAD_DIM",
+]
 
 MAX_READERS = 16    # kMaxG in the source
 MAX_HEAD_DIM = 256  # kMaxD in the source
@@ -34,6 +39,10 @@ def _bind(lib) -> None:
     lib.decode_attention_launch.restype = i
     lib.decode_attention_smem_bytes.argtypes = [i, i, i]
     lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.decode_attention_plan.argtypes = [i] * 8 + [
+        ctypes.POINTER(i), ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(i),
+    ]
+    lib.decode_attention_plan.restype = i
     lib.decode_attention_max_readers.restype = i
     lib.decode_attention_max_head_dim.restype = i
     if (lib.decode_attention_max_readers(), lib.decode_attention_max_head_dim()) != (
@@ -91,6 +100,23 @@ def _check(q, buf_k, buf_v, t) -> None:
     for name, x in (("buf_k", buf_k), ("buf_v", buf_v)):
         if x.data_ptr() % 16:
             raise ValueError(f"mrb_decode_attention: {name} is not 16-byte aligned")
+
+
+def launch_plan(q: torch.Tensor, buf_k: torch.Tensor, *, window: int = 0) -> dict:
+    """The cluster size (``splits``), dynamic shared memory per CTA
+    (``smem_bytes``) and ring slots per shared-memory stage (``tile``) that
+    :func:`mrb_decode_attention` launches with for these CUDA tensors'
+    shape and dtypes; chosen once per shape."""
+    B, C, kv, d = buf_k.shape
+    G = q.shape[1] // kv
+    lib = LIBRARY.load()
+    splits, smem, tile = ctypes.c_int(0), ctypes.c_size_t(0), ctypes.c_int(0)
+    err = lib.decode_attention_plan(
+        B, C, kv, G, d, int(window), DTYPE_CODES[q.dtype], DTYPE_CODES[buf_k.dtype],
+        ctypes.byref(splits), ctypes.byref(smem), ctypes.byref(tile),
+    )
+    LIBRARY.check(err, "mrb_decode_attention plan")
+    return dict(splits=splits.value, smem_bytes=smem.value, tile=tile.value)
 
 
 def mrb_decode_attention(

@@ -12,7 +12,9 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["mrb_append_ref", "mrb_read_window_ref", "decode_attention_ref"]
+__all__ = [
+    "mrb_append_ref", "mrb_read_window_ref", "decode_attention_ref", "decode_attention_split_ref",
+]
 
 
 def mrb_append_ref(buf: torch.Tensor, omega: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
@@ -80,4 +82,65 @@ def decode_attention_ref(
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", p, buf_v.float())
+    return out.reshape(B, H, d).to(q.dtype)
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,
+    buf_k: torch.Tensor,
+    buf_v: torch.Tensor,
+    t,
+    window: int = 0,
+    softcap: float = 0.0,
+    splits: int = 1,
+    tile: int = 32,
+) -> torch.Tensor:
+    """The CUDA kernel's split-and-merge arithmetic, in plain torch.
+
+    Walks the readable positions ``[lo, t]``, ``lo = max(0, t - min(W, C) + 1)``
+    (W = ``window``, or C when it is 0), in slots ``p mod C``; cuts them into
+    ``splits`` ranges of ``ceil(n / splits)`` positions rounded up to
+    ``tile`` (a later range may be empty); computes each range's float32
+    partial (m, l, acc) and merges them with weights ``exp(m_r - M)``, an
+    empty range (m = -inf) weighing exactly 0 without forming
+    ``-inf - (-inf)``.  Equals :func:`decode_attention_ref` up to float32
+    summation order wherever ``t >= 0``; with no readable position it
+    returns zeros, as the kernel does.  Used by tests and ``chip_smoke.py``
+    only.
+    """
+    B, C, kv, d = buf_k.shape
+    H = q.shape[1]
+    G = H // kv
+    t = int(torch.as_tensor(t))
+    span = window if 0 < window < C else C
+    n = min(t + 1, span) if t >= 0 else 0
+    lo = t - n + 1
+    per = -(-n // splits)
+    per = -(-per // tile) * tile
+    qh = q.reshape(B, kv, G, d).float()
+    ms, ls, accs = [], [], []
+    for r in range(splits):
+        cnt = max(0, min(per, n - r * per))
+        if cnt == 0:
+            ms.append(torch.full((B, kv, G), -math.inf, device=q.device))
+            ls.append(torch.zeros((B, kv, G), device=q.device))
+            accs.append(torch.zeros((B, kv, G, d), device=q.device))
+            continue
+        slot = torch.remainder(lo + r * per + torch.arange(cnt, device=q.device), C)
+        s = torch.einsum("bkgd,bckd->bkgc", qh, buf_k[:, slot].float()) / math.sqrt(d)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgc,bckd->bkgd", p, buf_v[:, slot].float()))
+    m_all = torch.stack(ms)
+    top = m_all.amax(dim=0)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)  # all empty: every m is -inf
+    coef = torch.exp(m_all - top)  # exp(-inf - finite) = 0 for an empty range
+    l_tot = (coef * torch.stack(ls)).sum(dim=0)
+    acc = (coef[..., None] * torch.stack(accs)).sum(dim=0)
+    out = torch.where(l_tot[..., None] > 0, acc / l_tot.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(acc))
     return out.reshape(B, H, d).to(q.dtype)

@@ -80,6 +80,29 @@ def test_decode_attention_kernel_matches_plain(device, case, dtype):
     assert kattn.launches == before + 1
 
 
+def test_decode_attention_launch_plan(device):
+    """One plan per shape, chosen once: a cluster of 1-16 CTAs, shared
+    memory within the card's 227 KB per CTA, 32- or 64-slot stages; the
+    served shape's 64-slot ring is one CTA per (batch row, kv head)."""
+    from repro_torch.kernels.decode_attention import launch_plan
+
+    cases = (  # B, C, kv, G, d, window, dtype, splits when fixed
+        (4, 64, 8, 2, 256, 4096, torch.bfloat16, 1),
+        (16, 4096, 8, 2, 128, 0, torch.bfloat16, None),
+        (1, 4113, 8, 16, 256, 0, torch.float32, None),
+        (2, 1, 1, 16, 256, 0, torch.float32, 1),
+    )
+    for B, C, kv, G, d, window, dt, splits in cases:
+        q = torch.empty((B, kv * G, d), dtype=dt, device=device)
+        k = torch.empty((B, C, kv, d), dtype=dt, device=device)
+        plan = launch_plan(q, k, window=window)
+        assert plan == launch_plan(q, k, window=window)
+        assert plan["splits"] in (1, 2, 4, 8, 16) and plan["tile"] in (32, 64)
+        assert 0 < plan["smem_bytes"] <= 232448
+        if splits is not None:
+            assert plan["splits"] == splits, (B, C, kv, G, d, plan)
+
+
 def test_mrb_append_kernel_matches_plain(device):
     from repro_torch.kernels import mrb_ring as kring
 
