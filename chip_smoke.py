@@ -14,7 +14,9 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
    ``mrb_ports=1``; the kernel's fire/dead/horizon must be bit-identical to
    the plain batched torch program run on the card, and 4 elements per case
    must match the event-driven simulator; kernel and plain times by CUDA
-   events;
+   events, each beside its bound by rounds (the longest phenotype's rounds
+   times the round floor that ``sim_step.cu``'s calibration kernel measures
+   at the kernel's block size) and its bytes bound;
 3. the main path: NSGA-II (population 100, offspring 25, 4 generations,
    seed 0) on Multicamera under MRB_Always with the ``sim_period``
    objective, simulated by the kernel; launch count > 0, no int32 guard
@@ -26,10 +28,13 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
 6. the ring kernels vs their plain versions on the card: ``mrb_append``
    exactly equal over the JAX package's sweep (float32 and bfloat16,
    ω ∈ {0, 1, block−1, block, C−1}, mixed token types) and its wrap
-   sequence; ``mrb_decode_attention`` within 3e-5 (float32) and 2e-2
-   (bfloat16) on the JAX package's five cases and on ragged, G=16 and
-   C=1 cases and on split-edge cases (window far below C, a partial fill
-   that leaves nearly every split empty, ragged G=16), also against the
+   sequence; the fused ``mrb_append_kv`` exactly equal, ω included, over
+   the same sweep and the served shape with negative and clamped ω, and a
+   70-step wrap, one launch per call; ``mrb_decode_attention`` within 3e-5
+   (float32) and 2e-2 (bfloat16) on the JAX package's five cases and on
+   ragged, G=16 and C=1 cases, on split-edge cases (window far below C, a
+   partial fill that leaves nearly every split empty, ragged G=16) and at
+   t = -1 (nothing readable: the mean of V), also against the
    plain split-and-merge at the kernel's own cluster size; CUDA-event
    times of both at the served shape (over the 42 layers' rings, so L2 is
    cold as in the model) and at long shapes (a Gemma-2 local layer in a
@@ -37,12 +42,16 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
    memory,
    each beside its bytes bound at 3.35 TB/s, the plain version's time and
    one PyTorch call's (``index_copy_``; ``scaled_dot_product_attention``
-   where there is no softcap);
+   where there is no softcap); at the served shape also the fused write
+   beside the sequence it replaces (two ``mrb_append``, then ``add_`` and
+   ``remainder_`` on ω), one and two ``index_copy_``, and the host µs per
+   call of both ring-append wrappers;
 7. the serving main path at full width: Gemma-2 9B, bfloat16 weights and
    cache, random weights from seed 0, B=4, a 32-token ``make_batch``
    prompt, 32 greedy tokens, ring capacity 64, through
    ``repro_torch.launch.serve.serve``; launch counts asserted, tokens in
-   range, logits finite, the kernel against the plain version on the live
+   range, logits finite, one fused ring write per layer and step, the
+   kernel against the plain version on the live
    rings of layer 0 (local) and layer 1 (global); init, prefill and
    decode times beside the 5.5 ms weight-read floor, and a profiler
    window of decode steps for the device's busy share;
@@ -195,6 +204,34 @@ def time_ms(fn, reps, warmup):
     return start.elapsed_time(end) / reps
 
 
+ROUND_FLOOR_ROUNDS = (2_000, 102_000)
+
+
+@functools.lru_cache(maxsize=None)
+def round_floor_ms(threads, device):
+    """The least time a simulator round can take in one CTA of ``threads``
+    threads: ms per round of the calibration kernel (one shared-memory
+    write, one barrier, one shared-memory read per round), from the
+    difference of two round counts so the launch drops out."""
+    from repro_torch.kernels import sim_step as kmod
+
+    lo, hi = ROUND_FLOOR_ROUNDS
+    t_lo, t_hi = (time_ms(lambda r=r: kmod.round_floor(threads, r, device), 5, warmup=1)
+                  for r in (lo, hi))
+    return (t_hi - t_lo) / (hi - lo)
+
+
+def rounds_bound(tab, rounds_max, ms, device):
+    """sim_step's bound by rounds: the longest phenotype's round count times
+    the round floor at the kernel's block size (one thread per actor,
+    rounded up to a warp); its CTAs run side by side."""
+    threads = 32 * ((tab.A + 31) // 32)
+    floor = round_floor_ms(threads, device)
+    bound_ms = rounds_max * floor
+    return dict(bound_ms=bound_ms, bound_by="rounds", round_floor_us=floor * 1e3,
+                threads=threads, gap_to_bound=ms / bound_ms)
+
+
 def compare_kernel_plain(tab, K, k_max, ports):
     """Kernel and plain outputs on ``tab``; asserts bit-identity and returns
     (max abs difference, plain-run stats with its time in ``ms``)."""
@@ -251,7 +288,8 @@ def phase_kernel_vs_plain(device):
             smem_bytes=kmod.build().sim_step_smem_bytes(tab.A, tab.C, tab.R, tab.H),
             rounds_mean=float(rounds.mean()), rounds_max=int(rounds.max()),
             ms=ms, plain_ms=plain_ms, bytes=nbytes,
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+            bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+            **rounds_bound(tab, int(rounds.max()), ms, device),
         )
         rows.append(row)
         log("phase kernel-vs-plain:", json.dumps(row))
@@ -271,10 +309,15 @@ def main_path_timing(device):
     ms = time_ms(lambda: kmod.sim_step(tab, K_FIRINGS, K_FIRINGS, None), KERNEL_REPS, warmup=3)
     plain_ms = stats["ms"]
     nbytes = tab.nbytes() + output_bytes(tab, K_FIRINGS)
+    rounds = stats["rounds"].float()
     row = dict(case="main_path_shape", B=tab.B, A=tab.A, Tmax=tab.Tmax, ms=ms,
-               plain_ms=plain_ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-               rounds_mean=float(stats["rounds"].float().mean()), max_abs_err=err)
+               plain_ms=plain_ms, bytes=nbytes, bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               rounds_mean=float(rounds.mean()), rounds_max=int(rounds.max()), max_abs_err=err,
+               **rounds_bound(tab, int(rounds.max()), ms, device))
     log("phase main-path-shape:", json.dumps(row))
+    log(f"phase main-path-shape: sim_step {ms:.6f} ms against its rounds bound "
+        f"{row['bound_ms']:.6f} ms ({row['rounds_max']} rounds x {row['round_floor_us']:.5f} us): "
+        f"{row['gap_to_bound']:.1f}x")
     return row
 
 
@@ -355,6 +398,8 @@ ATTN_CASES = (  # B, C, kv, G, d, window, softcap, t
     (1, 32768, 2, 2, 128, 64, 0.0, 40000),   # window << C: a few tiles of a long ring
     (2, 32768, 1, 4, 256, 0, 50.0, 10),      # partial fill: nearly all splits empty
     (1, 4113, 8, 16, 256, 0, 0.0, 4200),     # ragged, G=16, no window
+    (1, 4096, 2, 2, 128, 0, 50.0, -1),       # nothing readable: the mean of V, split S >= 2
+    (1, 4096, 2, 2, 128, 256, 50.0, -1),     # the same with a window
 )
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 GEMMA_LAYERS = 42
@@ -426,6 +471,55 @@ def check_append(device):
     assert torch.equal(ring[0, :, 0, 0], want), "mrb_append wrap sequence"
     torch.cuda.synchronize()
     log(f"phase ring-kernels: mrb_append exact on {n} writes and the wrap sequence")
+    return 0.0
+
+
+def check_append_kv(device):
+    """mrb_append_kv vs its plain version over the sweep (ring and token
+    types, ω in range, negative, clamped at either end, ω = C - 1) and a
+    70-step wrap sequence; exact, ω included, one launch per call.
+    Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import mrb_ring
+    from repro_torch.kernels.ref import mrb_append_kv_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    n = 0
+
+    def both(bk, bv, omega, k, v):
+        om, om_ref = (torch.tensor(omega, dtype=torch.int32, device=device) for _ in range(2))
+        got_k, got_v, want_k, want_v = bk.clone(), bv.clone(), bk.clone(), bv.clone()
+        before = mrb_ring.launches
+        mrb_ring.mrb_append_kv(got_k, got_v, om, k, v)
+        assert mrb_ring.launches == before + 1, "mrb_append_kv: one launch per call"
+        mrb_append_kv_ref(want_k, want_v, om_ref, k, v)
+        assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v), \
+            f"mrb_append_kv rings differ at {(tuple(bk.shape), omega, bk.dtype, k.dtype)}"
+        assert int(om) == int(om_ref), f"mrb_append_kv ω {int(om)} != {int(om_ref)}"
+
+    for B, C, H, d, block in APPEND_CASES + ((4, 64, 8, 256, 64),):  # and the served shape
+        for bdt in (torch.float32, torch.bfloat16):
+            for tdt in (torch.float32, torch.bfloat16):
+                bk, bv = randn((B, C, H, d), bdt, device, gen), randn((B, C, H, d), bdt, device, gen)
+                k, v = randn((B, 1, H, d), tdt, device, gen), randn((B, 1, H, d), tdt, device, gen)
+                for omega in (0, 1, block - 1, block, C - 1, -1, -C - 3, C + 5):
+                    both(bk, bv, omega, k, v)
+                    n += 1
+    C, steps = 8, 70
+    bk = torch.zeros((2, C, 2, 64), device=device, dtype=torch.bfloat16)
+    bv = torch.zeros_like(bk)
+    om = torch.tensor(C - 2, dtype=torch.int32, device=device)
+    rk, rv, rom = bk.clone(), bv.clone(), om.clone()
+    for i in range(steps):
+        k = torch.full((2, 1, 2, 64), float(i + 1), device=device)
+        mrb_ring.mrb_append_kv(bk, bv, om, k, -k)
+        mrb_append_kv_ref(rk, rv, rom, k, -k)
+    assert torch.equal(bk, rk) and torch.equal(bv, rv) and int(om) == int(rom) == (C - 2 + steps) % C
+    last = [float(steps - (steps + C - 3 - s) % C) for s in range(C)]  # the last C tokens
+    assert bk[0, :, 0, 0].float().tolist() == last, "mrb_append_kv wrap sequence"
+    torch.cuda.synchronize()
+    log(f"phase ring-kernels: mrb_append_kv exact (rings and ω) on {n} writes and a {steps}-step wrap")
     return 0.0
 
 
@@ -513,11 +607,36 @@ def time_attention(row, device):
     return out
 
 
+def host_us(fn, n, calls=1000):
+    """Host µs per call of ``fn(i)``, i cycling over ``n`` inputs: a host
+    clock over ``calls`` calls with no synchronisation between them."""
+    import torch
+
+    for i in range(3):
+        fn(i % n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i % n)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def time_append(row, device):
     """mrb_append (bfloat16) at one of TIMED_APPEND's shapes, cycling over
-    ``rings`` rings; ω sits mid-ring."""
+    ``rings`` rings; ω sits mid-ring.  Each ring's views are made before
+    the clock starts, so every row times the call alone.  At the served
+    shape (the first row) also the fused per-layer write (``kv``) beside
+    what it replaces and what PyTorch would do: CUDA-event ms per call of
+    - ``ms``: mrb_append_kv, K and V of one layer and ω's advance;
+    - ``replaced_ms``: the sequence it replaces, two mrb_append launches
+      then add_ and remainder_ on ω;
+    - ``library_ms``: one index_copy_ (a token, with a long index made once);
+    - ``pair_library_ms``: two index_copy_ then add_ and remainder_ on ω;
+    and the host µs per call of both wrappers and of index_copy_."""
     import torch
-    from repro_torch.kernels.mrb_ring import mrb_append
+    from repro_torch.kernels.mrb_ring import mrb_append, mrb_append_kv
     from repro_torch.kernels.ref import mrb_append_ref
 
     name, B, C, H, d, n = row
@@ -525,22 +644,62 @@ def time_append(row, device):
     gen.manual_seed(13)
     buf = randn((n, B, C, H, d), torch.bfloat16, device, gen)
     tok = randn((n, B, 1, H, d), torch.bfloat16, device, gen)
+    bk, k = list(buf.unbind(0)), list(tok.unbind(0))
     om = torch.tensor(C // 2 + 5, dtype=torch.int32, device=device)
     om_long = om.long().reshape(1)
     reps = max(5 * n, 50)
-    ms = time_cycle(lambda i: mrb_append(buf[i], om, tok[i]), n, reps=reps)
-    plain_ms = time_cycle(lambda i: mrb_append_ref(buf[i], om, tok[i]), n, reps=reps)
-    library_ms = time_cycle(lambda i: buf[i].index_copy_(1, om_long, tok[i]), n, reps=reps)
+    ms = time_cycle(lambda i: mrb_append(bk[i], om, k[i]), n, reps=reps)
+    plain_ms = time_cycle(lambda i: mrb_append_ref(bk[i], om, k[i]), n, reps=reps)
+    library_ms = time_cycle(lambda i: bk[i].index_copy_(1, om_long, k[i]), n, reps=reps)
     nbytes = 2 * B * H * d * 2 + 4
     bound_ms, bound_by = bound(nbytes, 0, BF16_PEAK_FLOPS)
-    del buf, tok
+    out = dict(shape=name, B=B, C=C, H=H, d=d, rings=n, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    if name == TIMED_APPEND[0][0]:
+        bv = list(randn((n, B, C, H, d), torch.bfloat16, device, gen).unbind(0))
+        v = list(randn((n, B, 1, H, d), torch.bfloat16, device, gen).unbind(0))
+        oms = list(torch.full((n,), C // 2 + 5, dtype=torch.int32, device=device).unbind(0))
+
+        def fused(i):
+            mrb_append_kv(bk[i], bv[i], oms[i], k[i], v[i])
+
+        def replaced(i):
+            mrb_append(bk[i], oms[i], k[i])
+            mrb_append(bv[i], oms[i], v[i])
+            oms[i].add_(1).remainder_(C)
+
+        def pair(i):
+            bk[i].index_copy_(1, om_long, k[i])
+            bv[i].index_copy_(1, om_long, v[i])
+            oms[i].add_(1).remainder_(C)
+
+        def index_copy(i):
+            bk[i].index_copy_(1, om_long, k[i])
+
+        # in turns: fused, replaced, one index_copy_, pair, fused
+        kv_ms = time_cycle(fused, n, reps=reps)
+        replaced_ms = time_cycle(replaced, n, reps=reps)
+        one_ms = time_cycle(index_copy, n, reps=reps)
+        pair_ms = time_cycle(pair, n, reps=reps)
+        kv_ms_2 = time_cycle(fused, n, reps=reps)
+        kv_bytes = 2 * (2 * B * H * d * 2) + 2 * 4
+        out["kv"] = dict(
+            ms=min(kv_ms, kv_ms_2), ms_runs=[kv_ms, kv_ms_2], replaced_ms=replaced_ms,
+            library_ms=one_ms, pair_library_ms=pair_ms, bytes=kv_bytes,
+            bound_ms=bound(kv_bytes, 0, BF16_PEAK_FLOPS)[0],
+            host_us=host_us(fused, n),
+            single_host_us=host_us(lambda i: mrb_append(bk[i], om, k[i]), n),
+            index_copy_host_us=host_us(index_copy, n),
+        )
+        out["host_us"] = out["kv"]["single_host_us"]
+        del bv, v, oms
+    del buf, tok, bk, k
     torch.cuda.empty_cache()
-    return dict(shape=name, B=B, C=C, H=H, d=d, rings=n, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 def phase_ring_kernels(device):
-    append_err = check_append(device)
+    append_err = max(check_append(device), check_append_kv(device))
     attn_err = 0.0
     for case in ATTN_CASES:
         for dtype_name in ("float32", "bfloat16"):
@@ -610,7 +769,7 @@ def profile_decode(model, state, steps=3):
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     ours = {}
-    for key, tag in (("mrb_append", "mrb_append_kernel"),
+    for key, tag in (("mrb_append", "mrb_append_kv_kernel"),
                      ("mrb_decode_attention", "decode_attention_kernel")):
         durs = [e.time_range.elapsed_us() for e in kernels if tag in e.name]
         ours[key] = dict(launches_per_step=len(durs) / steps,
@@ -634,7 +793,7 @@ def phase_serving(device):
     model, state = res["model"], res["state"]
     cfg = model.cfg
     steps = SERVE["prompt_len"] + SERVE["new_tokens"]
-    assert counts["mrb_append"] == 2 * cfg.n_layers * steps, counts
+    assert counts["mrb_append"] == cfg.n_layers * steps, counts
     assert counts["mrb_decode_attention"] == cfg.n_layers * steps, counts
     assert counts["sim_step"] == 0, counts
     gen = res["generated"]
@@ -680,7 +839,7 @@ def phase_ring_wrap(device):
     counts = read_counts()
     host = generate(host_model, prompt, n_new, ctx, keep_logits=True)
     steps = WRAP["prompt_len"] + n_new
-    assert counts["mrb_append"] == 2 * cfg.n_layers * steps, counts
+    assert counts["mrb_append"] == cfg.n_layers * steps, counts
     assert counts["mrb_decode_attention"] == cfg.n_layers * steps, counts
     assert torch.equal(card["generated"].cpu(), host["generated"]), "greedy tokens differ"
     err = 0.0
@@ -704,7 +863,7 @@ def phase_qwen3(device):
     counts = read_counts()
     cfg = res["model"].cfg
     steps = SERVE["prompt_len"] + SERVE["new_tokens"]
-    assert counts["mrb_append"] == 2 * cfg.n_layers * steps, counts
+    assert counts["mrb_append"] == cfg.n_layers * steps, counts
     assert counts["mrb_decode_attention"] == cfg.n_layers * steps, counts
     gen = res["generated"]
     assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab, "tokens out of range"
@@ -772,14 +931,18 @@ def main() -> int:
         dict(name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
              replaces="src/repro/kernels/sim_step.py:41", launches=main["launches"],
              max_abs_err=max(max_err, main_row["max_abs_err"]), ms=main_row["ms"],
-             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"], bound_by="bytes",
-             library_ms=None),
+             plain_ms=main_row["plain_ms"], bound_ms=main_row["bytes_bound_ms"],
+             bound_by="bytes", library_ms=None,
+             rounds_bound_ms=main_row["bound_ms"], rounds_max=main_row["rounds_max"],
+             round_floor_us=main_row["round_floor_us"]),
         dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
              replaces="src/repro/kernels/mrb_ring.py:35",
              launches=serving["launches"]["mrb_append"], max_abs_err=append_err,
              ms=append_row["ms"], plain_ms=append_row["plain_ms"],
              bound_ms=append_row["bound_ms"], bound_by=append_row["bound_by"],
-             library_ms=append_row["library_ms"]),
+             library_ms=append_row["library_ms"], host_us=append_row["host_us"],
+             kv={key: append_row["kv"][key]
+                 for key in ("ms", "replaced_ms", "library_ms", "bound_ms", "host_us")}),
         dict(name="mrb_decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:82",

@@ -83,11 +83,23 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _is_norm_param(name: str) -> bool:
+    """A block's norm scale or bias (``norm*``, ``post_norm*``) or an
+    attention's ``q_norm``/``k_norm``: float32 in the port."""
+    parts = name.split(".")
+    return parts[0] == "blocks" and (
+        parts[-2].startswith(("norm", "post_norm")) and parts[-1] in ("scale", "bias")
+        or parts[-2] == "attn" and parts[-1] in ("q_norm", "k_norm")
+    )
+
+
 def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> DecoderLM:
     """The JAX ``init_model(rng, cfg)`` tree, leaves as numpy arrays, as the
     port's :class:`~repro_torch.models.model.DecoderLM`.  Layer ``l`` of the
     stacked ``blocks`` tree becomes ``blocks.<l>``; keys, shapes and dtypes
-    must match exactly."""
+    must match exactly, except that a block's bfloat16 norm scales, biases
+    and ``q_norm``/``k_norm`` (what the reference's bfloat16 trees hold)
+    are up-cast to the port's float32, which is exact."""
     model = DecoderLM(cfg, device=resolve_device(device))
     flat = _flatten(tree)
     want = set()
@@ -104,6 +116,13 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> Decode
             if src is None:
                 raise KeyError(f"params_from_jax: the JAX tree has no {key!r}")
             x = _to_torch(src, p.device)
+            if _is_norm_param(name) and x.dtype == torch.bfloat16 and p.dtype == torch.float32:
+                # The reference casts every float32 leaf with ndim >= 2 to
+                # cfg.dtype, so stacked [L, d] norm scales arrive in
+                # bfloat16.  Its norm_fwd and _rms multiply a float32
+                # activation by the scale, promoting it to float32 anyway:
+                # the up-cast is exact and computes what the reference does.
+                x = x.float()
             if tuple(x.shape) != tuple(p.shape) or x.dtype != p.dtype:
                 raise ValueError(
                     f"params_from_jax: {name} is {tuple(x.shape)} {x.dtype}, "

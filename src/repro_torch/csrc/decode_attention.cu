@@ -60,8 +60,10 @@
 // 5. Dot products on the CUDA cores in float32 (no tensor cores).
 //
 // Invalid slots get exactly zero weight: running maxima start at -inf, a
-// rescale is exp(m_old - m_new) only when the maximum moved, masked slots
-// contribute 0, and l = 0 gives out = 0.
+// rescale is exp(m_old - m_new) only when the maximum moved, and masked
+// slots contribute 0.  With no readable position at all (t < 0) the
+// reference's softmax is uniform over its C masked scores, so the kernel
+// then walks all C slots with the score 0 and returns the mean of V.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -231,11 +233,14 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_kernel(
   unsigned char* work = smem + partial_bytes(G, d);
   TKV* stages = reinterpret_cast<TKV*>(work);
 
-  // This CTA's share of the readable positions [lo, t].
+  // This CTA's share of the readable positions [lo, t].  With none
+  // (t < 0) every slot is walked with the score 0: the reference masks
+  // all C scores to the same value, so its softmax is uniform over C.
   const int64_t t = *t_ptr;
+  const bool none = t < 0;
   const int64_t span = window > 0 && window < C ? window : C;
-  const int64_t n = t >= 0 ? (t + 1 < span ? t + 1 : span) : 0;
-  const int64_t lo = t - n + 1;
+  const int64_t n = none ? C : (t + 1 < span ? t + 1 : span);
+  const int64_t lo = none ? 0 : t - n + 1;
   const int tile = geo.tile;
   int64_t per = (n + S - 1) / S;
   per = (per + tile - 1) / tile * tile;
@@ -328,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_kernel(
 #pragma unroll
         for (int nn = 0; nn < kScoreChunks; ++nn) {
           const int c = li + geo.lps * nn;
-          if (c < row_chunks) {
+          if (!none && c < row_chunks) {  // t < 0: no q.k, every score is 0
             float kf[kVec];
             load_chunk(ks + j * d + c * kVec, kf);
 #pragma unroll

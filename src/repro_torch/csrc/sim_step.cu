@@ -295,9 +295,39 @@ __global__ void sim_step_kernel(
   }
 }
 
+// Calibration of the round floor (not the simulator): one CTA of the
+// simulator's block size runs `rounds` dependent rounds of the least work
+// a round needs, one shared-memory write, one __syncthreads() and one
+// shared-memory read-reduce (each thread adds its neighbour's value).
+// Two buffers alternate, so one barrier per round suffices: the buffer a
+// round writes was last read two rounds before, behind the barrier
+// between.  Timed by chip_smoke.py, its time per round times a
+// phenotype's round count bounds sim_step_kernel from below.
+__global__ void sim_round_floor_kernel(unsigned* __restrict__ out, int rounds) {
+  extern __shared__ unsigned buf[];  // [2][blockDim.x]
+  const int i = threadIdx.x;
+  const int n = blockDim.x;
+  const int nb = i + 1 < n ? i + 1 : 0;
+  unsigned x = i;
+  for (int r = 0; r < rounds; ++r) {
+    unsigned* cur = buf + (r & 1) * n;
+    cur[i] = x;
+    __syncthreads();
+    x += cur[nb];
+  }
+  out[i] = x;
+}
+
 }  // namespace
 
 extern "C" {
+
+// out: int32 [threads] on the device; threads <= 1024.
+int sim_round_floor_launch(void* out, int threads, int rounds, void* stream) {
+  sim_round_floor_kernel<<<1, threads, 2 * threads * sizeof(unsigned),
+                           static_cast<cudaStream_t>(stream)>>>(static_cast<unsigned*>(out), rounds);
+  return static_cast<int>(cudaGetLastError());
+}
 
 size_t sim_step_smem_bytes(int A, int C, int R, int H) {
   return sizeof(int) * (5 * static_cast<size_t>(C) + static_cast<size_t>(C) * R +

@@ -13,7 +13,8 @@ from typing import Tuple
 import torch
 
 __all__ = [
-    "mrb_append_ref", "mrb_read_window_ref", "decode_attention_ref", "decode_attention_split_ref",
+    "mrb_append_ref", "mrb_append_kv_ref", "mrb_read_window_ref", "decode_attention_ref",
+    "decode_attention_split_ref",
 ]
 
 
@@ -31,6 +32,17 @@ def mrb_append_ref(buf: torch.Tensor, omega: torch.Tensor, token: torch.Tensor) 
     idx = torch.as_tensor(omega, device=buf.device).reshape(1).long()
     idx = torch.where(idx < 0, idx + C, idx).clamp(0, C - 1)
     return buf.index_copy_(1, idx, token.to(buf.dtype))
+
+
+def mrb_append_kv_ref(buf_k: torch.Tensor, buf_v: torch.Tensor, omega: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor) -> None:
+    """The decode step's ring update, in place: ``k`` and ``v`` into slot ω
+    of ``buf_k`` and ``buf_v`` (:func:`mrb_append_ref`), then
+    ``ω ← (ω + 1) mod C``, floored as the reference's ``(omega + 1) % C``.
+    ``omega`` is a one-element int32 tensor."""
+    mrb_append_ref(buf_k, omega, k)
+    mrb_append_ref(buf_v, omega, v)
+    omega.add_(1).remainder_(buf_k.shape[1])
 
 
 def mrb_read_window_ref(
@@ -103,18 +115,19 @@ def decode_attention_split_ref(
     ``tile`` (a later range may be empty); computes each range's float32
     partial (m, l, acc) and merges them with weights ``exp(m_r - M)``, an
     empty range (m = -inf) weighing exactly 0 without forming
-    ``-inf - (-inf)``.  Equals :func:`decode_attention_ref` up to float32
-    summation order wherever ``t >= 0``; with no readable position it
-    returns zeros, as the kernel does.  Used by tests and ``chip_smoke.py``
-    only.
+    ``-inf - (-inf)``.  With no readable position (``t < 0``) it walks all
+    C slots with every score 0, so the output is the mean of V over the
+    ring, as the reference's softmax over C equally masked scores gives.
+    Equals :func:`decode_attention_ref` up to float32 summation order.
+    Used by tests and ``chip_smoke.py`` only.
     """
     B, C, kv, d = buf_k.shape
     H = q.shape[1]
     G = H // kv
     t = int(torch.as_tensor(t))
     span = window if 0 < window < C else C
-    n = min(t + 1, span) if t >= 0 else 0
-    lo = t - n + 1
+    n = min(t + 1, span) if t >= 0 else C
+    lo = t - n + 1 if t >= 0 else 0
     per = -(-n // splits)
     per = -(-per // tile) * tile
     qh = q.reshape(B, kv, G, d).float()
@@ -127,9 +140,12 @@ def decode_attention_split_ref(
             accs.append(torch.zeros((B, kv, G, d), device=q.device))
             continue
         slot = torch.remainder(lo + r * per + torch.arange(cnt, device=q.device), C)
-        s = torch.einsum("bkgd,bckd->bkgc", qh, buf_k[:, slot].float()) / math.sqrt(d)
-        if softcap > 0:
-            s = softcap * torch.tanh(s / softcap)
+        if t < 0:  # nothing readable: C equal scores
+            s = torch.zeros((B, kv, G, cnt), device=q.device)
+        else:
+            s = torch.einsum("bkgd,bckd->bkgc", qh, buf_k[:, slot].float()) / math.sqrt(d)
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
         m = s.amax(dim=-1)
         p = torch.exp(s - m[..., None])
         ms.append(m)

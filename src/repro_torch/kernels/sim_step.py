@@ -26,7 +26,7 @@ import torch
 from ..sim.batched import SimTables, simulate_plain
 from ._build import CudaLibrary
 
-__all__ = ["sim_step", "build", "launches", "build_info", "LIBRARY"]
+__all__ = ["sim_step", "round_floor", "build", "launches", "build_info", "LIBRARY"]
 
 
 def _bind(lib) -> None:
@@ -35,6 +35,8 @@ def _bind(lib) -> None:
     lib.sim_step_launch.restype = i
     lib.sim_step_smem_bytes.argtypes = [i] * 4
     lib.sim_step_smem_bytes.restype = ctypes.c_size_t
+    lib.sim_round_floor_launch.argtypes = [p, i, i, p]
+    lib.sim_round_floor_launch.restype = i
 
 
 LIBRARY = CudaLibrary("sim_step", _bind)
@@ -111,3 +113,23 @@ def sim_step(tab: SimTables, K: int, k_max: int, ports: Optional[int]):
     LIBRARY.check(err, "sim_step")
     launches += 1
     return fire, dead, horizon
+
+
+def round_floor(threads: int, rounds: int, device) -> torch.Tensor:
+    """Launch the round-floor calibration (``csrc/sim_step.cu``): one CTA of
+    ``threads`` threads, ``rounds`` dependent rounds of one shared-memory
+    write, one barrier and one shared-memory read.  Returns its int32
+    output [threads]; time it with CUDA events.  Not the simulator: not
+    counted in :data:`launches`."""
+    if not 1 <= threads <= 1024:
+        raise ValueError(f"round_floor: 1 <= threads <= 1024, got {threads}")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"round_floor: runs on the card, not on {dev}")
+    out = torch.empty(threads, dtype=torch.int32, device=dev)
+    err = build().sim_round_floor_launch(
+        ctypes.c_void_p(out.data_ptr()), threads, int(rounds),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    LIBRARY.check(err, "sim_round_floor")
+    return out

@@ -9,8 +9,8 @@ float32.
 
 The decode path keeps K/V in a *ring buffer* with one write index — the
 runtime realization of the paper's Multi-Reader Buffer: each KV head's
-buffer is written once per step (:func:`~repro_torch.kernels.ring_append`)
-and read by ``n_heads / n_kv_heads`` query-head readers
+buffer is written once per step (:func:`~repro_torch.kernels.ring_append_kv`
+writes K and V and advances ω in one call) and read by ``n_heads / n_kv_heads`` query-head readers
 (:func:`~repro_torch.kernels.ring_decode_attention`).  The ring and its
 ``omega``/``t`` counters live on the tensors' device and are updated in
 place.
@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import ring_append, ring_decode_attention
+from ..kernels import ring_append_kv, ring_decode_attention
 from .config import ModelConfig
 
 __all__ = [
@@ -253,7 +253,6 @@ def attention_decode(
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    C = cache["k"].shape[1]
     t = cache["t"]
     q = (x @ p.wq).reshape(B, 1, h, hd)
     k = (x @ p.wk).reshape(B, 1, kv, hd)
@@ -264,13 +263,11 @@ def attention_decode(
     pos = t.reshape(1)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)  # store rotated keys
-    ring_append(cache["k"], cache["omega"], k)
-    ring_append(cache["v"], cache["omega"], v)
+    ring_append_kv(cache["k"], cache["v"], cache["omega"], k, v)  # and ω ← (ω + 1) mod C
     out = ring_decode_attention(
         q.reshape(B, h, hd), cache["k"], cache["v"], t,
         window=int(window or 0), softcap=cfg.attn_softcap,
     )
-    cache["omega"].add_(1).remainder_(C)
     cache["t"].add_(1)
     return out.reshape(B, 1, h * hd) @ p.wo, cache
 

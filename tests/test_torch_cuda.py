@@ -7,9 +7,10 @@ fixture, never at import).  Run on the card with
 
 The cases are those of ``chip_smoke.py``: ``sim_step``'s kernel-vs-plain
 phase at its 32 distinct decodes, and the ring kernels' sweeps (exact for
-``mrb_append``; 3e-5 float32 and 2e-2 bfloat16 for
-``mrb_decode_attention``).  This file imports no JAX: the card's host has
-none.
+``mrb_append`` and the fused ``mrb_append_kv``, ω included; 3e-5 float32
+and 2e-2 bfloat16 for ``mrb_decode_attention``, also at ``t = -1``, where
+the answer is the mean of V).  This file imports no JAX: the card's host
+has none.
 """
 import os
 import sys
@@ -109,6 +110,82 @@ def test_mrb_append_kernel_matches_plain(device):
     before = kring.launches
     chip_smoke.check_append(device)
     assert kring.launches > before
+
+
+def test_mrb_append_kv_kernel_matches_plain(device):
+    """The fused write exactly equals mrb_append_kv_ref, ω included, over
+    f32/bf16 rings and tokens, negative and clamped ω and a 70-step wrap,
+    with one launch per call (asserted inside)."""
+    from repro_torch.kernels import mrb_ring as kring
+
+    before = kring.launches
+    assert chip_smoke.check_append_kv(device) == 0.0
+    assert kring.launches > before
+
+
+def test_mrb_append_cached_path_stays_exact_and_checked(device):
+    """After its first call a signature takes the lean path: still exact
+    against the plain version, one launch per call; a changed shape, dtype
+    or device goes through the full checks again and raises."""
+    from repro_torch.kernels import mrb_ring as kring
+    from repro_torch.kernels.ref import mrb_append_kv_ref, mrb_append_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    buf = chip_smoke.randn((2, 16, 2, 64), torch.bfloat16, device, gen)
+    ref = buf.clone()
+    for i in range(20):
+        tok = chip_smoke.randn((2, 1, 2, 64), torch.float32, device, gen)
+        om = torch.tensor(i - 5, dtype=torch.int32, device=device)
+        before = kring.launches
+        kring.mrb_append(buf, om, tok)
+        assert kring.launches == before + 1
+        mrb_append_ref(ref, om, tok)
+        assert torch.equal(buf, ref)
+    om = torch.zeros((), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        kring.mrb_append(buf, om, torch.zeros((2, 1, 2, 32), device=device))
+    with pytest.raises(ValueError):
+        kring.mrb_append(buf, om, torch.zeros((2, 2, 2, 64), device=device)[:, :1])  # strided
+    with pytest.raises(TypeError):
+        kring.mrb_append(buf, om.long(), torch.zeros((2, 1, 2, 64), device=device))
+    bv, rv = buf.clone(), ref.clone()
+    om, rom = (torch.tensor(15, dtype=torch.int32, device=device) for _ in range(2))
+    for i in range(3):
+        tok = chip_smoke.randn((2, 1, 2, 64), torch.bfloat16, device, gen)
+        kring.mrb_append_kv(buf, bv, om, tok, -tok)
+        mrb_append_kv_ref(ref, rv, rom, tok, -tok)
+        assert torch.equal(buf, ref) and torch.equal(bv, rv) and int(om) == int(rom) == i
+    with pytest.raises(ValueError):
+        kring.mrb_append_kv(buf, bv[:, :8], om, tok, tok)
+    with pytest.raises(TypeError):
+        kring.mrb_append_kv(buf, bv.float(), om, tok, tok)
+    with pytest.raises(ValueError):
+        kring.mrb_append_kv(buf, bv, om.cpu(), tok, tok)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 256])
+def test_decode_attention_without_readable_positions_is_the_mean_of_v(device, window, dtype):
+    """t = -1: the kernel returns the mean of V over all C slots, as the
+    reference does, within 3e-5 (f32) / 2e-2 (bf16), at a shape whose
+    cluster splits the walk (S >= 2)."""
+    from repro_torch.kernels.decode_attention import launch_plan, mrb_decode_attention
+
+    B, C, kv, G, d = 1, 4096, 2, 2, 128
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    q = chip_smoke.randn((B, kv * G, d), dt, device, gen, 0.3)
+    k = chip_smoke.randn((B, C, kv, d), dt, device, gen, 0.3)
+    v = chip_smoke.randn((B, C, kv, d), dt, device, gen, 0.3)
+    assert launch_plan(q, k, window=window)["splits"] >= 2
+    got = mrb_decode_attention(q, k, v, torch.tensor(-1, dtype=torch.int32, device=device),
+                               window=window, softcap=50.0)
+    want = v.float().mean(dim=1).repeat_interleave(G, dim=1)
+    tol = chip_smoke.ATTN_TOL[dtype]
+    assert torch.isfinite(got.float()).all()
+    assert torch.allclose(got.float(), want, atol=tol, rtol=tol)
 
 
 def test_ring_wrappers_reject_bad_inputs(device):

@@ -10,7 +10,7 @@ tolerances of ``tests/test_torch_ring_kernels.py``: 3e-5 in float32
 (summation order) and 2e-2 in bfloat16 (where each side rounds).  The cases
 reach the merge's edges: many splits, splits with no readable position
 (their maxima are -inf), a window smaller than one tile, a deep wrap,
-capacity 1 and G=16.
+capacity 1, G=16, and no readable position at all (t < 0: the mean of V).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -98,8 +98,39 @@ def test_split_ranges_cover_exactly_the_readable_positions():
 
 
 def test_split_ref_without_readable_positions_is_zero():
-    """No readable position (t < 0): every split is empty and the merge
-    gives exact zeros, not NaN."""
-    _, (q, k, v) = _inputs(1, 64, 2, 2, 32, "float32")
+    """No readable position (t < 0): the split reference gives what the
+    JAX package's oracle gives, the mean of V over all C slots (its softmax
+    over C equally masked scores is uniform), finite, not NaN.  The name
+    predates that fix: the split reference used to return zeros here."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 64, 2, 2, 32, "float32")
     out = ref.decode_attention_split_ref(q, k, v, torch.tensor(-1, dtype=torch.int32), 0, 0.0, 4)
-    assert torch.equal(out, torch.zeros_like(out))
+    want = jax_attention_ref(jq, jk, jv, jnp.int32(-1))
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    mean_v = v.mean(dim=1).repeat_interleave(2, dim=1)  # [B, kv*G, d], G = 2
+    np.testing.assert_allclose(out.numpy(), mean_v.numpy(), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 30.0)], ids=["no_window", "window"])
+def test_no_readable_position_gives_the_mean_of_v(window, cap, dtype):
+    """t = -1, with and without a window: the plain version and the split
+    reference at several split counts equal the JAX package's oracle and
+    its Pallas kernel (interpret mode), all the mean of V."""
+    B, C, kv, G, d = 2, 96, 2, 3, 64
+    (jq, jk, jv), (q, k, v) = _inputs(B, C, kv, G, d, dtype)
+    tt = torch.tensor(-1, dtype=torch.int32)
+    oracle = jax_attention_ref(jq, jk, jv, jnp.int32(-1), window=window, softcap=cap)
+    kernel = jax_decode_attention(jq, jk, jv, jnp.int32(-1), window=window, softcap=cap,
+                                  block=32, interpret=True)
+    mean_v = v.float().mean(dim=1).repeat_interleave(G, dim=1)
+    tol = TOL[dtype]
+    got = [ref.decode_attention_ref(q, k, v, tt, window, cap)]
+    got += [ref.decode_attention_split_ref(q, k, v, tt, window, cap, splits)
+            for splits in (1, 2, 3, 8)]
+    for out in got:
+        assert out.dtype == q.dtype and tuple(out.shape) == (B, kv * G, d)
+        for want in (oracle, kernel, mean_v):
+            np.testing.assert_allclose(_np(out), _np(want), atol=tol, rtol=tol)

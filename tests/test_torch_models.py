@@ -188,6 +188,35 @@ def test_attention_decode_matches(arch, window):
     assert int(cache["omega"]) == int(jcache["omega"]) and int(cache["t"]) == int(jcache["t"])
 
 
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,window", [("qwen3-0.6b", None), ("gemma2-9b", 3)])
+def test_attention_decode_cache_matches_through_wrap(arch, window, cache_dtype):
+    """After every one of 13 steps at ring capacity 5 (so ω wraps twice),
+    the port's cache equals the cache ``repro.models.layers.attention_decode``
+    returns: ω and t exactly, K and V within 1e-5 in float32 and within one
+    bfloat16 rounding (2e-2) in bfloat16, where each side rounds its float32
+    K/V once."""
+    jcfg, tcfg = smoke(arch)
+    jp, p = _attention_pair(jcfg, tcfg, seed=12)
+    B, C = 2, 5
+    jcache = JL.init_cache(jcfg, B, C, dtype=getattr(jnp, cache_dtype))
+    cache = TL.init_cache(tcfg, B, C, dtype=cache_dtype, device=CPU)
+    tol = 1e-5 if cache_dtype == "float32" else 2e-2
+    rng = np.random.default_rng(13)
+    jwin = None if window is None else jnp.int32(window)
+    for _ in range(13):
+        x = rng.standard_normal((B, 1, jcfg.d_model), dtype=np.float32) * 0.5
+        _, jcache = JL.attention_decode(jp, jcfg, jnp.asarray(x), jcache, jwin)
+        _, cache = TL.attention_decode(p, tcfg, torch.from_numpy(x), cache, window)
+        for k in ("k", "v"):
+            assert cache[k].dtype == TL.torch_dtype(cache_dtype)
+            np.testing.assert_allclose(cache[k].float().numpy(),
+                                       np.asarray(jcache[k]).astype(np.float32),
+                                       atol=tol, rtol=tol)
+        assert int(cache["omega"]) == int(jcache["omega"]) and int(cache["t"]) == int(jcache["t"])
+        assert cache["omega"].dtype == cache["t"].dtype == torch.int32
+
+
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-9b"])
 def test_attention_fwd_matches(arch):
     jcfg, tcfg = smoke(arch)
@@ -284,6 +313,57 @@ def test_bridge_rejects_a_mismatched_tree(bridged):
         params_from_jax(tcfg, tree, device=CPU)
 
 
+BF16_ARCHS = ["qwen3-0.6b", "gemma2-9b", "nemotron-4-340b", "stablelm-1.6b"]  # all the port models
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
+def test_bridge_loads_bfloat16_trees(arch):
+    """The reference's bfloat16 smoke tree (every float32 leaf with ndim >= 2
+    cast, so stacked block norm scales arrive in bfloat16) loads: matrices
+    bit for bit in bfloat16, the block norms and q/k norms up-cast exactly
+    to the port's float32."""
+    jcfg, tcfg = smoke(arch, dtype="bfloat16")
+    tree = to_np(JM.init_model(RNG, jcfg))
+    model = params_from_jax(tcfg, tree, device=CPU)
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        flat[".".join(q.key for q in path)] = leaf
+    upcast = 0
+    for name, t in model.named_parameters():
+        if name.startswith("blocks."):
+            layer, rest = name.split(".", 2)[1:]
+            src = flat[f"blocks.{rest}"][int(layer)]
+        else:
+            src = flat[name]
+        if src.dtype.name == "bfloat16" and t.dtype == torch.float32:
+            upcast += 1
+        else:
+            assert str(t.dtype)[6:] == src.dtype.name, name
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(src, np.float32))
+    assert upcast >= 2 * tcfg.n_layers
+    assert model.blocks[0].attn.wq.dtype == torch.bfloat16
+    assert model.blocks[0].norm1.scale.dtype == torch.float32
+
+
+def test_bridge_still_rejects_bfloat16_mismatches():
+    """The up-cast covers only the norms: a wrong-shaped norm scale and a
+    matrix of the wrong dtype still raise."""
+    jcfg, tcfg = smoke("qwen3-0.6b", dtype="bfloat16")
+    params = to_np(JM.init_model(RNG, jcfg))
+    tree = jax.tree_util.tree_map(lambda x: x, params)
+    tree["blocks"]["norm1"]["scale"] = tree["blocks"]["norm1"]["scale"][:, :-1]
+    with pytest.raises(ValueError, match="norm1.scale"):
+        params_from_jax(tcfg, tree, device=CPU)
+    tree = jax.tree_util.tree_map(lambda x: x, params)
+    tree["blocks"]["attn"]["wq"] = tree["blocks"]["attn"]["wq"].astype(np.float32)
+    with pytest.raises(ValueError, match="attn.wq"):
+        params_from_jax(tcfg, tree, device=CPU)
+    tree = jax.tree_util.tree_map(lambda x: x, params)
+    tree["final_norm"]["scale"] = tree["final_norm"]["scale"].astype(tree["blocks"]["attn"]["wq"].dtype)
+    with pytest.raises(ValueError, match="final_norm.scale"):
+        params_from_jax(tcfg, tree, device=CPU)
+
+
 def _jax_step(jcfg):
     return jax.jit(lambda p, t, s: JM.decode_step(p, jcfg, t, s))
 
@@ -316,6 +396,43 @@ def test_decode_step_matches(arch, bridged):
     ref = to_np(jstate)["layers"]
     for k in ("k", "v"):
         np.testing.assert_allclose(mine[k], ref[k], atol=1e-5, rtol=1e-5)
+    for k in ("omega", "t"):
+        np.testing.assert_array_equal(mine[k], ref[k])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-9b"])
+def test_decode_step_matches_in_bfloat16(arch):
+    """bfloat16 weights and cache, bridged from the reference's bfloat16
+    tree: 24 teacher-forced then 8 greedy steps (JAX's tokens fed to both)
+    at context 64.  Logits within 0.02 absolute at every step (the two
+    round to bfloat16 at different places: JAX casts the softmax weights to
+    the cache dtype before P·V, the port keeps them in float32); greedy
+    tokens equal wherever JAX's top-2 logit gap exceeds 0.02; ω and t
+    exact."""
+    jcfg, tcfg = smoke(arch, dtype="bfloat16")
+    params = JM.init_model(RNG, jcfg)
+    model = params_from_jax(tcfg, to_np(params), device=CPU)
+    B, ctx = 2, 64
+    toks = np.array(jdata.make_batch(jcfg, 24, B)["tokens"])
+    jstate = JM.init_decode_state(jcfg, B, ctx)
+    state = TM.init_decode_state(tcfg, B, ctx, device=CPU)
+    assert state["layers"]["k"].dtype == torch.bfloat16
+    step = _jax_step(jcfg)
+    nxt = None
+    for i in range(24 + 8):
+        tj = toks[:, i:i + 1] if i < 24 else nxt
+        want, jstate = step(params, jnp.asarray(tj), jstate)
+        got, state = TM.decode_step(model, torch.from_numpy(np.ascontiguousarray(tj)), state)
+        want = np.asarray(want, np.float32)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (B, 1, tcfg.vocab)
+        np.testing.assert_allclose(got.numpy(), want, atol=0.02, rtol=0)
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > 0.02
+        nxt = np.argmax(want, -1).astype(np.int32)
+        mine = torch.argmax(got, -1).numpy()
+        np.testing.assert_array_equal(mine[clear], nxt[clear])
+    mine = decode_state_to_numpy(state)["layers"]
+    ref = to_np(jstate)["layers"]
     for k in ("omega", "t"):
         np.testing.assert_array_equal(mine[k], ref[k])
 

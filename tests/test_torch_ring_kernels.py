@@ -20,7 +20,7 @@ from repro.kernels.ref import mrb_append_ref as jax_append_ref
 from repro.kernels.ref import mrb_read_window_ref as jax_read_window_ref
 from repro_torch.kernels import decode_attention as kattn
 from repro_torch.kernels import mrb_ring as kring
-from repro_torch.kernels import ref, ring_append, ring_decode_attention
+from repro_torch.kernels import ref, ring_append, ring_append_kv, ring_decode_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -80,6 +80,77 @@ def test_mrb_append_sequence_builds_ring():
     np.testing.assert_array_equal(tbuf[0, :, 0, 0].numpy(),
                                   np.array([9, 10, 11, 4, 5, 6, 7, 8], np.float32))
     np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
+
+
+def _jax_append_kv(jbuf_k, jbuf_v, omega, jk, jv, block):
+    """The reference's ring update: two Pallas appends (interpret mode)
+    where ω lies in [0, C), else the jnp oracle (dynamic_update_slice,
+    which wraps a negative ω once and clamps); then ``(omega + 1) % C``."""
+    C = jbuf_k.shape[1]
+    om = jnp.int32(omega)
+    if 0 <= omega < C:
+        new_k = jax_mrb_append(jbuf_k, om, jk, block=block, interpret=True)
+        new_v = jax_mrb_append(jbuf_v, om, jv, block=block, interpret=True)
+    else:
+        new_k, new_v = jax_append_ref(jbuf_k, om, jk), jax_append_ref(jbuf_v, om, jv)
+    return new_k, new_v, int((om + 1) % C)
+
+
+@pytest.mark.parametrize("token_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,H,d,block", [(1, 256, 2, 128, 128), (2, 512, 4, 64, 256)])
+def test_mrb_append_kv_plain_matches_jax(B, C, H, d, block, dtype, token_dtype):
+    """The fused ring update on the CPU: both rings and ω exactly as the
+    JAX package's two appends plus ``(omega + 1) % C``, over the sweep,
+    a negative ω, ω past either end (clamped) and ω = C - 1 (wraps to 0)."""
+    rng = np.random.default_rng(9)
+    bufs = [rng.standard_normal((B, C, H, d), dtype=np.float32) for _ in range(2)]
+    toks = [rng.standard_normal((B, 1, H, d), dtype=np.float32) for _ in range(2)]
+    (jbk, tbk), (jbv, tbv) = (_pair(b, dtype) for b in bufs)
+    (jk, tk), (jv, tv) = (_pair(t, token_dtype) for t in toks)
+    for omega in (0, 1, block - 1, block, C - 1, -1, -C - 3, C + 5):
+        want_k, want_v, want_om = _jax_append_kv(jbk, jbv, omega, jk, jv, block)
+        got_k, got_v = tbk.clone(), tbv.clone()
+        om = torch.tensor(omega, dtype=torch.int32)
+        assert ring_append_kv(got_k, got_v, om, tk, tv) is None
+        assert got_k.dtype == tbk.dtype and om.dtype == torch.int32
+        np.testing.assert_array_equal(_np(got_k), _np(want_k))
+        np.testing.assert_array_equal(_np(got_v), _np(want_v))
+        assert int(om) == want_om
+
+
+def test_mrb_append_kv_wrap_sequence_matches_jax():
+    """2C + 3 fused updates from ω = C - 2: ω wraps twice and the rings
+    hold the last C tokens, as the JAX package's step-by-step update."""
+    B, C, H, d = 2, 8, 2, 32
+    tbk, tbv = torch.zeros((B, C, H, d)), torch.zeros((B, C, H, d))
+    jbk, jbv = jnp.zeros((B, C, H, d)), jnp.zeros((B, C, H, d))
+    om = torch.tensor(C - 2, dtype=torch.int32)
+    jom = C - 2
+    for i in range(2 * C + 3):
+        k = np.full((B, 1, H, d), float(i + 1), np.float32)
+        v = -k
+        ring_append_kv(tbk, tbv, om, torch.from_numpy(k), torch.from_numpy(v))
+        jbk, jbv, jom = _jax_append_kv(jbk, jbv, jom, jnp.asarray(k), jnp.asarray(v), block=8)
+        assert int(om) == jom
+    np.testing.assert_array_equal(tbk.numpy(), np.asarray(jbk))
+    np.testing.assert_array_equal(tbv.numpy(), np.asarray(jbv))
+    np.testing.assert_array_equal(tbk[0, :, 0, 0].numpy(),
+                                  np.array([19, 12, 13, 14, 15, 16, 17, 18], np.float32))
+
+
+def test_cpu_fused_wrapper_leaves_launch_count_at_zero_and_refuses_meta():
+    kring.launches = 0
+    rng = np.random.default_rng(4)
+    buf = torch.from_numpy(rng.standard_normal((1, 8, 2, 32), dtype=np.float32))
+    tok = torch.from_numpy(rng.standard_normal((1, 1, 2, 32), dtype=np.float32))
+    om = torch.tensor(7, dtype=torch.int32)
+    ring_append_kv(buf, buf.clone(), om, tok, tok)
+    assert kring.launches == 0 and int(om) == 0
+    meta = torch.zeros((1, 4, 1, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ring_append_kv(meta, meta, torch.zeros((), dtype=torch.int32, device="meta"),
+                       meta[:, :1], meta[:, :1])
 
 
 @pytest.mark.parametrize("t,window", [(3, 8), (20, 8), (70, 16), (0, 4)])
