@@ -7,20 +7,24 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
 
 1. the card's name and power limit; the three CUDA sources are built side
    by side (one ``nvcc`` each); the build of ``sim_step.cu`` (seconds,
-   and registers / spills per ``nvcc -Xptxas -v``; the kernel's shared
-   memory is dynamic, so each case below prints its bytes per CTA);
+   and registers, spills and barriers of each kernel instance per
+   ``nvcc -Xptxas -v``; the kernel's shared memory is dynamic, so each
+   case below prints its bytes per CTA);
 2. kernel vs plain: seeded caps_hms decodes (32 distinct, tiled to B=256)
    of Sobel ξ=0/ξ=1, Sobel4 ξ=1, Multicamera ξ=0/ξ=1 and Sobel ξ=1 with
-   ``mrb_ports=1``; the kernel's fire/dead/horizon must be bit-identical to
-   the plain batched torch program run on the card, and 4 elements per case
-   must match the event-driven simulator; kernel and plain times by CUDA
-   events, each beside its bound by rounds (the longest phenotype's rounds
-   times the round floor that ``sim_step.cu``'s calibration kernel measures
-   at the kernel's block size) and its bytes bound;
+   ``mrb_ports=1``; the kernel's fire/dead/horizon and round counts must be
+   bit-identical to the plain batched torch program run on the card, and 4
+   elements per case must match the event-driven simulator; kernel and
+   plain times by CUDA events, µs per round (ms over the longest
+   phenotype's rounds), the launch plan (warps, actors per thread, shared
+   memory), each beside its bound by rounds (the longest phenotype's
+   rounds times the round floor that ``sim_step.cu``'s calibration kernel
+   measures at the kernel's block size) and its bytes bound;
 3. the main path: NSGA-II (population 100, offspring 25, 4 generations,
    seed 0) on Multicamera under MRB_Always with the ``sim_period``
    objective, simulated by the kernel; launch count > 0, no int32 guard
    reroutes, archive periods re-checked with the event-driven simulator;
+   the kernel's CUDA-event time summed over its launches beside ``sim_s``;
 4. Sobel under MRB_Explore (population 20, offspring 10, 3 generations):
    the ``"cuda"`` and ``"events"`` fronts must be identical;
 5. the builds of ``mrb_ring.cu`` and ``decode_attention.cu`` (seconds,
@@ -221,25 +225,47 @@ def round_floor_ms(threads, device):
     return (t_hi - t_lo) / (hi - lo)
 
 
+def plan_of(tab):
+    from repro_torch.kernels.sim_step import launch_plan
+
+    return launch_plan(tab.A, tab.C, tab.R, tab.H, tab.Tmax, tab.total_tasks())
+
+
+def plan_row(tab):
+    """The launch plan, checked against the CUDA side's shared-memory
+    bytes."""
+    from repro_torch.kernels import sim_step as kmod
+
+    plan = plan_of(tab)
+    smem = kmod.build().sim_step_smem_bytes(tab.A, tab.C, tab.R, tab.H, plan["tasks"],
+                                            plan["warps"])
+    assert smem == plan["smem_bytes"], f"launch_plan {plan['smem_bytes']} B, CUDA side {smem} B"
+    return dict(warps=plan["warps"], actors_per_thread=plan["actors_per_thread"],
+                smem_bytes=plan["smem_bytes"])
+
+
 def rounds_bound(tab, rounds_max, ms, device):
     """sim_step's bound by rounds: the longest phenotype's round count times
-    the round floor at the kernel's block size (one thread per actor,
-    rounded up to a warp); its CTAs run side by side."""
-    threads = 32 * ((tab.A + 31) // 32)
+    the round floor at the kernel's block size (the launch plan's
+    threads); its CTAs run side by side."""
+    threads = plan_of(tab)["threads"]
     floor = round_floor_ms(threads, device)
     bound_ms = rounds_max * floor
     return dict(bound_ms=bound_ms, bound_by="rounds", round_floor_us=floor * 1e3,
-                threads=threads, gap_to_bound=ms / bound_ms)
+                threads=threads, gap_to_bound=ms / bound_ms,
+                us_per_round=ms * 1e3 / rounds_max)
 
 
 def compare_kernel_plain(tab, K, k_max, ports):
-    """Kernel and plain outputs on ``tab``; asserts bit-identity and returns
-    (max abs difference, plain-run stats with its time in ``ms``)."""
+    """Kernel and plain outputs on ``tab``; asserts bit-identity, round
+    counts included, and returns (max abs difference, plain-run stats with
+    its time in ``ms``)."""
     import torch
     from repro_torch.kernels import sim_step as kmod
     from repro_torch.sim.batched import simulate_plain
 
-    kf, kd, kh = kmod.sim_step(tab, K, k_max, ports)
+    kstats: dict = {}
+    kf, kd, kh = kmod.sim_step(tab, K, k_max, ports, stats=kstats)
     stats: dict = {}
     out = []
     stats["ms"] = time_ms(
@@ -254,6 +280,8 @@ def compare_kernel_plain(tab, K, k_max, ports):
     assert torch.equal(kf, pf), "sim_step fire table differs from the plain version"
     assert torch.equal(kd, pd), "sim_step deadlock flags differ from the plain version"
     assert torch.equal(kh, ph), "sim_step horizons differ from the plain version"
+    assert torch.equal(kstats["rounds"], stats["rounds"]), \
+        "sim_step round counts differ from the plain version"
     return err, stats
 
 
@@ -285,7 +313,7 @@ def phase_kernel_vs_plain(device):
         row = dict(
             case=name, B=tab.B, A=tab.A, C=tab.C, R=tab.R, H=tab.H, Tmax=tab.Tmax,
             tasks=tab.total_tasks(), K=K_FIRINGS, k_max=k_max,
-            smem_bytes=kmod.build().sim_step_smem_bytes(tab.A, tab.C, tab.R, tab.H),
+            **plan_row(tab),
             rounds_mean=float(rounds.mean()), rounds_max=int(rounds.max()),
             ms=ms, plain_ms=plain_ms, bytes=nbytes,
             bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
@@ -311,13 +339,14 @@ def main_path_timing(device):
     nbytes = tab.nbytes() + output_bytes(tab, K_FIRINGS)
     rounds = stats["rounds"].float()
     row = dict(case="main_path_shape", B=tab.B, A=tab.A, Tmax=tab.Tmax, ms=ms,
+               **plan_row(tab),
                plain_ms=plain_ms, bytes=nbytes, bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                rounds_mean=float(rounds.mean()), rounds_max=int(rounds.max()), max_abs_err=err,
                **rounds_bound(tab, int(rounds.max()), ms, device))
     log("phase main-path-shape:", json.dumps(row))
-    log(f"phase main-path-shape: sim_step {ms:.6f} ms against its rounds bound "
-        f"{row['bound_ms']:.6f} ms ({row['rounds_max']} rounds x {row['round_floor_us']:.5f} us): "
-        f"{row['gap_to_bound']:.1f}x")
+    log(f"phase main-path-shape: sim_step {ms:.6f} ms ({row['us_per_round']:.6f} us per round) "
+        f"against its rounds bound {row['bound_ms']:.6f} ms ({row['rounds_max']} rounds x "
+        f"{row['round_floor_us']:.5f} us): {row['gap_to_bound']:.1f}x")
     return row
 
 
@@ -329,7 +358,22 @@ def phase_main_path(device):
         graph=multicamera(), arch=paper_architecture(), strategy="MRB_Always",
         objectives=("sim_period", "memory", "core_cost"),
     )
+    import torch
+    from repro_torch.kernels import sim_step as kmod
+
     gens = []
+    events = []
+    launch = kmod.sim_step
+
+    def timed_launch(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    kmod.sim_step = timed_launch  # batched._run_batch looks it up at each call
     with problem.make_engine(sim_backend="cuda", device=device) as eng:
         last = dict(t=time.perf_counter(), decode=0.0, sim=0.0)
 
@@ -350,6 +394,9 @@ def phase_main_path(device):
         counts, fallbacks = read_counts(), batched.int32_fallbacks
         launches = counts["sim_step"]
         graph = eng._transformed(run.archive[0].genotype.xi)
+    kmod.sim_step = launch
+    torch.cuda.synchronize()
+    kernel_ms = [s.elapsed_time(e) for s, e in events]
     assert launches > 0, "the main path launched no sim_step kernel"
     assert fallbacks == 0, f"{fallbacks} phenotypes rerouted by the int32 guard"
     front = run.front
@@ -359,7 +406,8 @@ def phase_main_path(device):
             "archived sim_period differs from the event-driven simulator"
     summary = dict(launches=launches, counts=counts, int32_fallbacks=fallbacks, front=len(front),
                    evaluations=run.evaluations, wall_s=run.wall_s,
-                   decode_s=eng.decode_s, sim_s=eng.sim_s)
+                   decode_s=eng.decode_s, sim_s=eng.sim_s,
+                   kernel_s=sum(kernel_ms) / 1e3, kernel_ms_per_launch=kernel_ms)
     log("phase main-path:", json.dumps(summary))
     return summary
 
@@ -879,7 +927,7 @@ def phase_qwen3(device):
 
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
-            if re.search(r"registers|smem|spill|Compiling entry", ln)]
+            if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
 
 
 def main() -> int:
@@ -934,7 +982,9 @@ def main() -> int:
              plain_ms=main_row["plain_ms"], bound_ms=main_row["bytes_bound_ms"],
              bound_by="bytes", library_ms=None,
              rounds_bound_ms=main_row["bound_ms"], rounds_max=main_row["rounds_max"],
-             round_floor_us=main_row["round_floor_us"]),
+             round_floor_us=main_row["round_floor_us"], us_per_round=main_row["us_per_round"],
+             warps=main_row["warps"], main_path_kernel_s=main["kernel_s"],
+             main_path_sim_s=main["sim_s"]),
         dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
              replaces="src/repro/kernels/mrb_ring.py:35",
              launches=serving["launches"]["mrb_append"], max_abs_err=append_err,

@@ -11,7 +11,9 @@ phenotypes that share one (transformed graph, architecture) pair:
   the compact form the simulator runs on — per task a kind, a channel index
   and a reader slot; per phenotype and task a duration and a route bitmask
   over the interconnects; per phenotype and actor a compact core index;
-  per phenotype the channel capacities γ.
+  per phenotype the channel capacities γ; :func:`pack_tables` packs the
+  graph-derived part for the CUDA kernel (tasks by actor offsets, gate
+  masks as bit words).
 * **The plain program.**  :func:`simulate_plain` runs the phased-round
   loop of the model with the batch axis written out as torch tensor ops.
   It is the plain version of the CUDA kernel
@@ -59,6 +61,7 @@ __all__ = [
     "batch_simulate",
     "batch_simulate_periods",
     "compact_tables",
+    "pack_tables",
     "simulate_plain",
     "SimTables",
     "INT32_SAFE_HORIZON",
@@ -171,7 +174,10 @@ class SimTables:
     and ``delay (C,)`` int32.  Binding-derived (batched): ``dur (B, A,
     Tmax)`` int32, ``route (B, A, Tmax)`` int32 holding the bitmask of
     occupied interconnects, ``core (B, A)`` compact core index and
-    ``gamma (B, C)`` capacities, int32.
+    ``gamma (B, C)`` capacities, int32.  ``pack`` is
+    :func:`pack_tables` of the graph-derived tables, int32 on the same
+    device, which the CUDA kernel runs on (set by :func:`compact_tables`;
+    None on tables built by hand, which only the plain program takes).
     """
 
     kind: torch.Tensor
@@ -186,6 +192,7 @@ class SimTables:
     gamma: torch.Tensor
     R: int
     H: int
+    pack: Optional[torch.Tensor] = None
 
     @property
     def B(self) -> int:
@@ -208,6 +215,8 @@ class SimTables:
         return self.dur.device
 
     def total_tasks(self) -> int:
+        if self.pack is not None:  # the pack's length, with no device sync
+            return packed_tasks(self.pack.numel(), self.A, self.C, self.R)
         return int(self.n_tasks.sum())
 
     def max_steps(self, K: int) -> int:
@@ -232,8 +241,55 @@ class SimTables:
         return SimTables(
             self.kind, self.chan, self.slot, self.n_tasks, self.nread,
             self.delay, pick(self.dur), pick(self.route), pick(self.core),
-            pick(self.gamma), self.R, self.H,
+            pick(self.gamma), self.R, self.H, self.pack,
         )
+
+
+def _words(bits: np.ndarray) -> np.ndarray:
+    """(A, n) bool → (A, ⌈n/32⌉) uint32, bit i of word w = column 32w + i."""
+    A, n = bits.shape
+    W = (n + 31) // 32
+    padded = np.zeros((A, W * 32), np.uint64)
+    padded[:, :n] = bits
+    shifts = np.arange(32, dtype=np.uint64)
+    return (padded.reshape(A, W, 32) << shifts).sum(-1).astype(np.uint32)
+
+
+def packed_tasks(numel: int, A: int, C: int, R: int) -> int:
+    """The task count T of a :func:`pack_tables` result of ``numel`` words."""
+    return numel - (A + 1) - A * ((C * R + 31) // 32 + (C + 31) // 32)
+
+
+def pack_tables(kind, chan, slot, n_tasks, inmask, outmask) -> np.ndarray:
+    """The graph-derived tables packed for the CUDA kernel, int32 words:
+
+    * ``off (A + 1)``: actor a's tasks are ``off[a] .. off[a + 1] - 1``;
+    * ``desc (T)``: per task ``kind | (slot & 0xff) << 8 | chan << 16``,
+      actor by actor (not padded to ``Tmax``);
+    * ``gin (A, ⌈C·R/32⌉)``: ``inmask (A, C, R)``, the views ``c·R + s``
+      actor a reads, bit ``v % 32`` of word ``v // 32``;
+    * ``gout (A, ⌈C/32⌉)``: ``outmask (A, C)``, the channels it writes.
+
+    (The masks are :func:`_lower_batch`'s start-of-firing gates.)  Raises
+    ``ValueError`` unless every channel has at most one writer and every
+    view at most one reader, which the kernel's MRB arithmetic relies on
+    (the model's rule; see ``csrc/sim_step.cu``).
+    """
+    kind, chan, slot = (np.asarray(x).astype(np.int64) for x in (kind, chan, slot))
+    n_tasks = np.asarray(n_tasks).astype(np.int64)
+    A, Tmax = kind.shape
+    inmask = np.asarray(inmask).reshape(A, -1)
+    if (inmask.sum(0) > 1).any() or (np.asarray(outmask).sum(0) > 1).any():
+        raise ValueError("pack_tables: a channel with two writers or a view with two readers")
+    off = np.zeros(A + 1, np.int64)
+    off[1:] = np.cumsum(n_tasks)
+    live = np.arange(Tmax)[None, :] < n_tasks[:, None]
+    desc = ((kind & 0xFF) | ((slot & 0xFF) << 8) | ((chan & 0xFFFF) << 16))[live]
+    words = np.concatenate([
+        off, desc, _words(inmask).ravel().astype(np.int64),
+        _words(np.asarray(outmask)).ravel().astype(np.int64),
+    ])
+    return words.astype(np.uint32).view(np.int32)
 
 
 def compact_tables(static, batched, device) -> SimTables:
@@ -271,6 +327,8 @@ def compact_tables(static, batched, device) -> SimTables:
         gamma=t(batched["gamma"], np.int32),
         R=R,
         H=H,
+        pack=t(pack_tables(kind, chan, slot, static["n_tasks"], static["inmask"],
+                           static["outmask"]), np.int32),
     )
 
 

@@ -71,6 +71,133 @@ def test_wrapper_rejects_bad_inputs(device):
         kmod.sim_step(tab, 32, 16, None)
 
 
+# ------------------------------------------------------- sim_step edge cases
+def _chain(A, seed=0, feeder=False):
+    """A pipelined chain of A actors on paper_architecture(), every fifth
+    actor also writing a two-reader buffer two actors on; with ``feeder``
+    one more actor, on a self-loop, feeds the head through a channel
+    holding three tokens (A + 1 actors in all)."""
+    import random
+
+    from repro_torch.core import ApplicationGraph, paper_architecture, pipeline_delays
+
+    rng = random.Random(f"sim-edge:{A}:{seed}")
+    g = ApplicationGraph(f"chain{A}")
+    names = [f"a{i:04d}" for i in range(A)]
+    for n in names:
+        w = rng.randint(3, 40)
+        g.add_actor(n, {"t1": -(-w // 3), "t2": -(-w // 2), "t3": w})
+    for i in range(A - 1):
+        g.add_channel(f"c{i:04d}", names[i], names[i + 1], capacity=2, token_bytes=1 << 16)
+    for i in range(0, A - 2, 5):
+        g.add_channel(f"m{i:04d}", names[i], [names[i + 1], names[i + 2]], capacity=2,
+                      token_bytes=1 << 18)
+    if feeder:
+        g.add_actor("feeder", {"t1": 5, "t2": 8, "t3": 15})
+        g.add_channel("loop", "feeder", "feeder", capacity=2, token_bytes=64)
+        g.add_channel("feed", "feeder", names[0], delay=3, capacity=4, token_bytes=64)
+    return pipeline_delays(g), paper_architecture()
+
+
+def _edge_tables(g, arch, device, n, seed=0, delay=None):
+    """Tables of n seeded caps_hms decodes of g; ``delay`` ({channel: δ})
+    overrides initial tokens in the lowered programs."""
+    from dataclasses import replace
+
+    from repro_torch.sim import lower_phenotype
+    from repro_torch.sim.batched import _lower_batch, compact_tables
+
+    scheds = chip_smoke.random_schedules(g, arch, n, seed=f"sim-edge:{g.name}:{seed}")
+    progs = [lower_phenotype(g, arch, s) for s in scheds]
+    if delay is not None:
+        progs = [replace(p, delay={**p.delay, **delay}) for p in progs]
+    return compact_tables(*_lower_batch(progs), device)
+
+
+def _huge(exec_time):
+    """Two actors of exec_time on every core type, one channel (δ=1, γ=2):
+    event times pass 2**31 within 16 firings."""
+    from repro_torch.core import ApplicationGraph, paper_architecture
+
+    g = ApplicationGraph("huge")
+    g.add_actor("A", {"t1": exec_time, "t2": exec_time, "t3": exec_time})
+    g.add_actor("B", {"t1": exec_time, "t2": exec_time, "t3": exec_time})
+    g.add_channel("c", "A", "B", delay=1, capacity=2, token_bytes=64)
+    return g, paper_architecture()
+
+
+@pytest.mark.parametrize("A", [32, 33, 64, 65])
+def test_kernel_matches_plain_across_warp_edges(device, A):
+    """Bit-identical to the plain program, round counts included, at A on
+    either side of one warp (no block barriers) and of two warps; K=1 and
+    k_max > K."""
+    g, arch = _chain(A)
+    tab = _edge_tables(g, arch, device, n=8)
+    assert tab.A == A and tab.R == 2
+    for K, k_max in ((4, 4), (1, 1), (3, 8)):
+        err, _ = chip_smoke.compare_kernel_plain(tab, K, k_max, None)
+        assert err == 0
+
+
+@pytest.mark.parametrize("A,ports", [(6, 2), (33, 2), (65, 2), (65, 1)])
+def test_kernel_matches_plain_with_ports(device, A, ports):
+    g, arch = _chain(A)
+    tab = _edge_tables(g, arch, device, n=8)
+    err, _ = chip_smoke.compare_kernel_plain(tab, 4, 4, ports)
+    assert err == 0
+
+
+def test_kernel_matches_plain_on_a_deadlock(device):
+    """The feeder's self-loop emptied of its token: the feeder never fires,
+    the head fires on the three tokens it was given, the chain drains,
+    then every element deadlocks short of K firings."""
+    from repro_torch.kernels import sim_step as kmod
+
+    g, arch = _chain(32, feeder=True)
+    tab = _edge_tables(g, arch, device, n=4, delay={"loop": 0})
+    err, _ = chip_smoke.compare_kernel_plain(tab, 4, 4, None)
+    assert err == 0
+    _, dead, _ = kmod.sim_step(tab, 4, 4, None)
+    assert bool(dead.all())
+
+
+def test_kernel_wraps_int32_like_plain(device):
+    """As tests/test_torch_sim.py's _huge: t + duration passes 2**31 and
+    wraps as int32 arithmetic does, identically in both.  A wrapped end
+    time is due at once, so firings then follow each other closer than an
+    actor's execution time, and the horizon trips the wrapper's guard."""
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.sim.batched import INT32_SAFE_HORIZON
+
+    exec_time = 3 * 2**26
+    g, arch = _huge(exec_time)
+    tab = _edge_tables(g, arch, device, n=2)
+    err, _ = chip_smoke.compare_kernel_plain(tab, 16, 16, None)
+    assert err == 0
+    fire, _, horizon = kmod.sim_step(tab, 16, 16, None)
+    assert int(horizon.min()) >= INT32_SAFE_HORIZON
+    assert int((fire[:, :, 1:] - fire[:, :, :-1]).min()) < exec_time
+
+
+@pytest.mark.parametrize("B", [1, 257])
+def test_kernel_matches_plain_at_batch_edges(device, B):
+    g, arch = _chain(33)
+    tab = _edge_tables(g, arch, device, n=4).select([i % 4 for i in range(B)])
+    err, _ = chip_smoke.compare_kernel_plain(tab, 2, 4, None)
+    assert err == 0
+
+
+def test_launch_plan_matches_the_cuda_side(device):
+    """launch_plan's shared-memory bytes are the kernel's, at every plan."""
+    from repro_torch.kernels import sim_step as kmod
+
+    lib = kmod.build()
+    for A, C, R, H, T in ((7, 7, 1, 5, 21), (39, 37, 2, 5, 136), (62, 111, 1, 5, 284),
+                          (65, 70, 2, 32, 200), (1024, 8, 1, 5, 2048)):
+        plan = kmod.launch_plan(A, C, R, H, 64, T)
+        assert lib.sim_step_smem_bytes(A, C, R, H, T, plan["warps"]) == plan["smem_bytes"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", chip_smoke.ATTN_CASES, ids=str)
 def test_decode_attention_kernel_matches_plain(device, case, dtype):
