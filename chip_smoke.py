@@ -65,6 +65,19 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
    step (TF32 off) and identical greedy tokens;
 9. Qwen3-0.6B at full width: B=4, prompt 32, 32 greedy tokens; launch
    counts asserted, timings printed.
+10. the device explorer ``torch_nsga2``: (a) the relaxed evaluation on the
+    card (its ``sim_step`` launched once per call on tables the decode
+    wrote on the device) equal to the same function on CPU tensors, for
+    Multicamera ξ=1 and ξ=0 at B=256 (8 seeded gene rows tiled, K=16) and
+    for a population whose event times wrap int32 (inf where the plain
+    program wraps); (b) the main path of phase 3 through ``torch_nsga2``
+    relaxed: per-generation wall, time to the end of the first generation
+    (cold), ``relaxed_evaluations``, ``sim_step`` launches and their
+    CUDA-event ms, archive periods re-checked with the event-driven
+    simulator, relHV against phase 3's host front (≥ 0.25); (c)
+    ``BENCH_evo.json``'s shape (Sobel Reference, population 512, offspring
+    256, 5 generations, seed 11): the host ``nsga2`` against ``torch_nsga2``
+    relaxed, warm seconds per generation and relHV (≥ 0.25).
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -409,6 +422,7 @@ def phase_main_path(device):
                    decode_s=eng.decode_s, sim_s=eng.sim_s,
                    kernel_s=sum(kernel_ms) / 1e3, kernel_ms_per_launch=kernel_ms)
     log("phase main-path:", json.dumps(summary))
+    summary["front_points"] = front   # phase 10's yardstick; not logged
     return summary
 
 
@@ -925,6 +939,358 @@ def phase_qwen3(device):
     return summary
 
 
+# ------------------------------------------------------- device explorer
+EVO_OBJECTIVES = ("sim_period", "period", "memory", "core_cost", "comm_volume")
+EVO_IDENTITY = dict(distinct=8, B=TILE_B, K=16)   # card B=256 = 8 distinct rows tiled
+EVO_MAIN_OBJECTIVES = ("sim_period", "memory", "core_cost")  # the main path's problem
+# The main path's own launch shapes: B = offspring and B = population at
+# ξ=1 (MRB_Always), K = the explorer's sim_iters; 25 distinct rows.
+EVO_MAIN_IDENTITY = dict(distinct=MAIN_PATH["offspring"],
+                         Bs=(MAIN_PATH["offspring"], MAIN_PATH["population"]))
+EVO_BENCH = dict(population=512, offspring=256, generations=5, seed=11)  # BENCH_evo.json
+RELHV_GATE = 0.25                                  # tests/test_torch_evo.py's gate
+
+
+def relaxed_identity(g, xi, device, objectives=EVO_OBJECTIVES, distinct=EVO_IDENTITY["distinct"],
+                     Bs=(EVO_IDENTITY["B"],), K=EVO_IDENTITY["K"]):
+    """The relaxed evaluation of graph ``g`` at ξ = ``xi`` (every bit) for
+    each batch of ``B`` in ``Bs`` seeded gene rows (``distinct`` rows
+    tiled) on the card against the same function on CPU tensors (the plain
+    simulator, one intra-op thread) over the distinct rows; asserts
+    equality, inf in the same places, and one ``sim_step`` launch for each
+    of the card's two calls per batch.  Returns (max abs difference over
+    finite entries, the card's F on the host per batch, the second card
+    call's ms between CUDA events per batch)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ExplorationProblem, paper_architecture
+    from repro_torch.evo import PopulationLayout
+    from repro_torch.evo.decode import DecodeTables, make_relaxed_eval
+    from repro_torch.kernels import sim_step as kmod
+
+    problem = ExplorationProblem(graph=g, arch=paper_architecture(), objectives=objectives)
+    layout = PopulationLayout(problem.space())
+    rng = np.random.default_rng(1000 + xi)
+    rows = rng.integers(0, layout.bounds, size=(distinct, layout.n_genes)).astype(np.int32)
+    rows[:, layout.xi_slice] = xi
+    tab = DecodeTables(problem.space(), (xi,) * layout.n_xi)
+    card_fn = make_relaxed_eval(tab, objectives, sim_iters=K, device=device)
+    cpu_fn = make_relaxed_eval(tab, objectives, sim_iters=K, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        host_rows = cpu_fn(torch.as_tensor(rows))
+    finally:
+        torch.set_num_threads(threads)
+    errs, cards, times = [], [], []
+    for B in Bs:
+        pick = np.arange(B) % distinct
+        genes = torch.as_tensor(rows[pick], device=device)
+        before = kmod.launches
+        card = card_fn(genes)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = card_fn(genes)
+        end.record()
+        torch.cuda.synchronize()
+        assert kmod.launches == before + 2, \
+            "the relaxed evaluation did not launch sim_step once a call"
+        assert torch.equal(torch.isinf(card), torch.isinf(again)) and torch.equal(
+            card[torch.isfinite(card)], again[torch.isfinite(again)]), "two card calls differ"
+        host = host_rows[torch.as_tensor(pick)]
+        card = card.cpu()
+        where = f"{g.name} ξ={xi} B={B} K={K}"
+        assert torch.equal(torch.isinf(card), torch.isinf(host)), f"{where}: inf differs"
+        fin = torch.isfinite(host)
+        err = float((card[fin] - host[fin]).abs().max()) if bool(fin.any()) else 0.0
+        assert torch.equal(card[fin], host[fin]), f"{where}: card and CPU differ by {err}"
+        errs.append(err)
+        cards.append(card)
+        times.append(start.elapsed_time(end))
+    return max(errs), cards, times
+
+
+def plain_on_cpu(tabs, K, k_max, ports):
+    """The plain program on a CPU copy of the card's tables ``tabs`` (one
+    ξ pattern: the same graph-derived tensors), run as one batch of all
+    their phenotypes: ``(fire, dead, horizon)`` per table."""
+    import dataclasses
+    import torch
+    from repro_torch.sim.batched import simulate_plain
+
+    per_phenotype = ("dur", "route", "core", "gamma")
+    shared = [f.name for f in dataclasses.fields(tabs[0])
+              if isinstance(getattr(tabs[0], f.name), torch.Tensor)
+              and f.name not in per_phenotype]
+    assert all(getattr(t, f) is getattr(tabs[0], f) for t in tabs for f in shared), \
+        "the tables do not share their graph-derived tensors"
+    cpu = dataclasses.replace(
+        tabs[0], **{f: getattr(tabs[0], f).cpu() for f in shared},
+        **{f: torch.cat([getattr(t, f) for t in tabs]).cpu() for f in per_phenotype})
+    sizes = [t.B for t in tabs]
+    return list(zip(*(out.split(sizes) for out in simulate_plain(cpu, K, k_max, ports))))
+
+
+def huge_graph():
+    """Two actors of 3·2**26 on every core type, one channel (δ=1, γ=2):
+    event times pass 2**31 within 16 firings and wrap as int32."""
+    from repro_torch.core import ApplicationGraph
+
+    g = ApplicationGraph("huge")
+    for a in ("A", "B"):
+        g.add_actor(a, {"t1": 3 * 2**26, "t2": 3 * 2**26, "t3": 3 * 2**26})
+    g.add_channel("c", "A", "B", delay=1, capacity=2, token_bytes=64)
+    return g
+
+
+def timed_generations(explorer, problem, engine, on_launch=None):
+    """Run ``explorer`` and return (run, per-generation wall seconds, seconds
+    from the call to the end of generation 0, launch marks per generation)."""
+    marks = []
+    t = [time.perf_counter()]
+    t0 = t[0]
+    walls = []
+    first = []
+
+    def on_generation(gen, run):
+        now = time.perf_counter()
+        walls.append(now - t[0])
+        t[0] = now
+        if not first:
+            first.append(now - t0)
+        if on_launch is not None:
+            marks.append(on_launch())
+
+    run = explorer.explore(problem, engine=engine, on_generation=on_generation)
+    return run, walls, first[0], marks
+
+
+def relaxed_generation_parts(device, graph, strategy, objectives, population, offspring,
+                             reps=5, seed=0):
+    """Where a warm relaxed generation's time goes, by parts timed alone
+    (host clock around a synchronize, best of ``reps``): the relaxed
+    evaluation of ``offspring`` rows, the ranking (ranks + crowding) of
+    the merged ``population + offspring`` points, and the variation
+    (tournaments, crossover, mutation); the evaluation's launches and
+    device busy share from torch.profiler (None where it saw no kernel)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import ExplorationProblem, paper_architecture, xi_mode
+    from repro_torch.evo import PopulationLayout, ranking, variation
+    from repro_torch.evo.decode import DecodeTables, make_relaxed_eval
+
+    problem = ExplorationProblem(graph=graph, arch=paper_architecture(), strategy=strategy,
+                                 objectives=objectives)
+    layout = PopulationLayout(problem.space(), xi_mode(strategy))
+    fn = make_relaxed_eval(DecodeTables(problem.space(), (layout.xi_forced or 0,) * layout.n_xi),
+                           objectives, device=device)
+    rng = np.random.default_rng(seed)
+    genes = torch.as_tensor(layout.force_xi(rng.integers(
+        0, layout.bounds, size=(population + offspring, layout.n_genes)).astype(np.int32)),
+        device=device)
+    F = fn(genes)
+    bounds = torch.as_tensor(layout.bounds, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def best_ms(f):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return min(out)
+
+    def rank():
+        r = ranking.nondomination_ranks(F)
+        return r, ranking.crowding(F, r)
+
+    def vary():
+        r, c = rank_pop
+        ia = variation.tournament_pick(gen, r, c, offspring)
+        ib = variation.tournament_pick(gen, r, c, offspring)
+        child = variation.uniform_crossover(gen, genes[ia], genes[ib], 0.95)
+        return variation.mutate(gen, child, bounds)
+
+    rank_pop = rank()
+    parts = dict(eval_ms=best_ms(lambda: fn(genes[:offspring])), rank_ms=best_ms(rank),
+                 vary_ms=best_ms(vary), fronts=int(rank_pop[0].max()) + 1,
+                 population=population, offspring=offspring)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(genes[:offspring])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        parts.update(eval_kernels=len(kernels), eval_device_ms=busy_us / 1e3,
+                     eval_busy_share=busy_us / wall_us)
+    return parts
+
+
+def phase_device_explorer(device, host_front):
+    """Phase 10: (a) card-vs-CPU relaxed-eval identity on Multicamera ξ=0/1,
+    at the main path's own shapes, and on a population whose event times
+    wrap; (b) ``torch_nsga2`` relaxed on the main path, every relaxed
+    ``sim_step`` launch of the run held against the plain program on its
+    own tables; (c) the BENCH_evo.json shape, host ``nsga2`` against
+    ``torch_nsga2`` relaxed."""
+    import inspect
+    import torch
+    from repro_torch.core import (ExplorationProblem, NSGA2Explorer, multicamera,
+                                  paper_architecture, relative_hypervolume, sobel)
+    from repro_torch.evo import TorchNSGA2Explorer
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.sim import simulate_period
+
+    out = dict(identity=[])
+    for xi in (1, 0):
+        t0 = time.perf_counter()
+        err, cards, ms = relaxed_identity(multicamera(), xi, device)
+        out["identity"].append(dict(case=f"multicamera_xi{xi}", B=cards[0].shape[0],
+                                    K=EVO_IDENTITY["K"], max_abs_err=err, card_ms=ms[0],
+                                    inf_rows=int(torch.isinf(cards[0]).any(1).sum()),
+                                    seconds=time.perf_counter() - t0))
+        log("phase device-explorer: identity", json.dumps(out["identity"][-1]))
+    k_main = inspect.signature(TorchNSGA2Explorer).parameters["sim_iters"].default
+    t0 = time.perf_counter()
+    err, cards, ms = relaxed_identity(multicamera(), 1, device, EVO_MAIN_OBJECTIVES, K=k_main,
+                                      **EVO_MAIN_IDENTITY)
+    out["identity"].append(dict(case="main_path_shape_multicamera_xi1",
+                                B=[c.shape[0] for c in cards], K=k_main,
+                                distinct=EVO_MAIN_IDENTITY["distinct"], max_abs_err=err,
+                                card_ms=ms, inf_rows=[int(torch.isinf(c).any(1).sum())
+                                                      for c in cards],
+                                seconds=time.perf_counter() - t0))
+    log("phase device-explorer: identity", json.dumps(out["identity"][-1]))
+    err, cards, ms = relaxed_identity(huge_graph(), 0, device, ("sim_period", "memory"),
+                                      Bs=(64,))
+    assert bool(torch.isinf(cards[0][:, 0]).any()), "no wrapped population gave inf"
+    out["identity"].append(dict(case="int32_wrap", B=64, max_abs_err=err,
+                                inf_rows=int(torch.isinf(cards[0][:, 0]).sum())))
+    log("phase device-explorer: identity", json.dumps(out["identity"][-1]))
+
+    # (b) the main path through torch_nsga2 relaxed, sim_period by the kernel
+    problem = ExplorationProblem(
+        graph=multicamera(), arch=paper_architecture(), strategy="MRB_Always",
+        objectives=EVO_MAIN_OBJECTIVES,
+    )
+    events = []
+    calls = []
+    launch = kmod.sim_step
+
+    def timed_launch(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        calls.append((args, kwargs, res))  # the tables and outputs, kept on the card
+        return res
+
+    kmod.sim_step = timed_launch  # bound by make_relaxed_eval and batched._run_batch
+    try:
+        with problem.make_engine(sim_backend="cuda", device=device) as eng:
+            reset_counts()
+            run, walls, ttfg, marks = timed_generations(
+                TorchNSGA2Explorer(evaluation="relaxed", **MAIN_PATH), problem, eng,
+                on_launch=lambda: len(events))
+            counts = read_counts()
+            graph = eng._transformed(run.archive[0].genotype.xi)
+    finally:
+        kmod.sim_step = launch
+    torch.cuda.synchronize()
+    relaxed_launches = marks[-1]
+    kernel_ms = [s.elapsed_time(e) for s, e in events]
+    assert counts["sim_step"] > 0 and relaxed_launches == 1 + MAIN_PATH["generations"], \
+        (counts, marks)
+    # Every relaxed launch of the run against the plain program on a CPU
+    # copy of the very tables the decode wrote on the card, all launches
+    # in one plain batch (its rows are independent; one batch costs less).
+    relaxed = calls[:relaxed_launches]
+    calls.clear()
+    ports = {args[3] for args, _, _ in relaxed}
+    assert all(not kwargs and args[1] == args[2] == k_main for args, kwargs, _ in relaxed) \
+        and len(ports) == 1, [(args[1:], kwargs) for args, kwargs, _ in relaxed]
+    t0 = time.perf_counter()
+    plain = plain_on_cpu([args[0] for args, _, _ in relaxed], k_main, k_main, ports.pop())
+    plain_s = time.perf_counter() - t0
+    launch_checks = []
+    for (args, _, card), (pf, pd, ph) in zip(relaxed, plain):
+        tab = args[0]
+        kf, kd, kh = (x.cpu() for x in card)
+        err = max(int((kf.long() - pf.long()).abs().max()),
+                  int((kh.long() - ph.long()).abs().max()),
+                  int((kd.long() - pd.long()).abs().max()))
+        assert torch.equal(kf, pf) and torch.equal(kd, pd) and torch.equal(kh, ph), \
+            f"main-path sim_step launch at B={tab.B} differs from the plain version by {err}"
+        launch_checks.append(dict(B=tab.B, A=tab.A, Tmax=tab.Tmax, K=k_main, max_abs_err=err,
+                                  dead=int(kd.sum())))
+    assert [c["B"] for c in launch_checks] == (
+        [MAIN_PATH["population"]] + [MAIN_PATH["offspring"]] * MAIN_PATH["generations"])
+    log("phase device-explorer: main-path launches against the plain version",
+        json.dumps(dict(launches=launch_checks, plain_s=plain_s)))
+    front = run.front
+    assert front and all(len(p) == 3 and all(math.isfinite(v) for v in p) for p in front)
+    for ind in run.archive[:4]:
+        assert ind.objectives[0] == simulate_period(graph, problem.arch, ind.schedule), \
+            "archived sim_period differs from the event-driven simulator"
+    relhv = relative_hypervolume(front, host_front)
+    assert relhv >= RELHV_GATE, f"torch_nsga2 relHV {relhv} against phase 3's host front"
+    out["main_path"] = dict(
+        launches=counts["sim_step"], relaxed_launches=relaxed_launches,
+        engine_launches=counts["sim_step"] - relaxed_launches,
+        relaxed_evaluations=run.meta["relaxed_evaluations"],
+        relaxed_final_candidates=run.meta["relaxed_final_candidates"],
+        gen_wall_s=walls, warm_gen_s=sum(walls[1:]) / len(walls[1:]), ttfg_s=ttfg,
+        wall_s=run.wall_s, front=len(front), relhv_vs_nsga2=relhv,
+        relaxed_kernel_ms=kernel_ms[:relaxed_launches],
+        engine_kernel_ms=kernel_ms[relaxed_launches:],
+        launch_checks=launch_checks, launch_checks_plain_s=plain_s,
+    )
+    log("phase device-explorer: main path", json.dumps(out["main_path"]))
+    out["main_path_parts"] = relaxed_generation_parts(
+        device, multicamera(), "MRB_Always", problem.objectives, MAIN_PATH["population"],
+        MAIN_PATH["offspring"])
+    log("phase device-explorer: main path, a warm generation's parts",
+        json.dumps(out["main_path_parts"]))
+
+    # (c) BENCH_evo.json's shape: host nsga2 against torch_nsga2 relaxed
+    bench = ExplorationProblem(graph=sobel(), arch=paper_architecture(), strategy="Reference")
+    arms = {}
+    for name, explorer in (
+        ("host_nsga2", NSGA2Explorer(track_hypervolume=False, **EVO_BENCH)),
+        ("torch_nsga2", TorchNSGA2Explorer(evaluation="relaxed", track_hypervolume=False,
+                                           **EVO_BENCH)),
+    ):
+        with bench.make_engine(sim_backend="cuda", device=device) as eng:
+            run, walls, ttfg, _ = timed_generations(explorer, bench, eng)
+        arms[name] = dict(gen_wall_s=walls, warm_gen_s=sum(walls[1:]) / len(walls[1:]),
+                          ttfg_s=ttfg, wall_s=run.wall_s, front=run.front,
+                          decodes=run.evaluations,
+                          relaxed_evaluations=run.meta.get("relaxed_evaluations"))
+    relhv = relative_hypervolume(arms["torch_nsga2"]["front"], arms["host_nsga2"]["front"])
+    assert relhv >= RELHV_GATE, f"BENCH_evo shape: relHV {relhv}"
+    for arm in arms.values():
+        arm["front"] = len(arm["front"])
+    out["bench_evo"] = dict(arms, relhv=relhv, warm_speedup=arms["host_nsga2"]["warm_gen_s"]
+                            / arms["torch_nsga2"]["warm_gen_s"])
+    log("phase device-explorer: BENCH_evo shape", json.dumps(out["bench_evo"]))
+    out["bench_evo_parts"] = relaxed_generation_parts(
+        device, sobel(), "Reference", bench.objectives, EVO_BENCH["population"],
+        EVO_BENCH["offspring"])
+    log("phase device-explorer: BENCH_evo shape, a warm generation's parts",
+        json.dumps(out["bench_evo_parts"]))
+    out["max_abs_err"] = max([row["max_abs_err"] for row in out["identity"]]
+                             + [c["max_abs_err"] for c in launch_checks])
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -972,19 +1338,24 @@ def main() -> int:
     serving, _ = phase_serving(device)
     phase_ring_wrap(device)
     phase_qwen3(device)
+    evo = phase_device_explorer(device, main["front_points"])
 
     served = attn_rows[0]
     qwen3_long = next(r for r in attn_rows if r["shape"] == "qwen3_long")
     kernels = [
         dict(name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
              replaces="src/repro/kernels/sim_step.py:41", launches=main["launches"],
-             max_abs_err=max(max_err, main_row["max_abs_err"]), ms=main_row["ms"],
+             max_abs_err=max(max_err, main_row["max_abs_err"], evo["max_abs_err"]),
+             ms=main_row["ms"],
              plain_ms=main_row["plain_ms"], bound_ms=main_row["bytes_bound_ms"],
              bound_by="bytes", library_ms=None,
              rounds_bound_ms=main_row["bound_ms"], rounds_max=main_row["rounds_max"],
              round_floor_us=main_row["round_floor_us"], us_per_round=main_row["us_per_round"],
              warps=main_row["warps"], main_path_kernel_s=main["kernel_s"],
-             main_path_sim_s=main["sim_s"]),
+             main_path_sim_s=main["sim_s"],
+             device_explorer_launches=evo["main_path"]["launches"],
+             device_explorer_kernel_ms=evo["main_path"]["relaxed_kernel_ms"],
+             device_explorer_max_abs_err=evo["max_abs_err"]),
         dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
              replaces="src/repro/kernels/mrb_ring.py:35",
              launches=serving["launches"]["mrb_append"], max_abs_err=append_err,

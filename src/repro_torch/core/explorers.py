@@ -12,6 +12,9 @@ stats — with JSON save/load under ``runs/``.  Two implementations:
   proves the seam: same problem, same engine, same result type, different
   search.
 
+The device-resident ``torch_nsga2`` (:mod:`repro_torch.evo`) registers
+itself when the registry is first asked.
+
 Explorers are registered by name (``register_explorer``) so experiment
 drivers can select them declaratively, mirroring the decoder and objective
 registries.  Following De Matteis et al. (Streaming Task Graph Scheduling
@@ -195,8 +198,16 @@ def register_explorer(name: str) -> Callable[[Type], Type]:
     return deco
 
 
+def _load_plugin_explorers() -> None:
+    """Explorers living outside this module register on import; the
+    device-resident ``torch_nsga2`` (:mod:`repro_torch.evo`) is deferred
+    because its subsystem is heavier than the registry itself."""
+    from .. import evo  # noqa: F401  (import side effect: registration)
+
+
 def get_explorer(name: str, **params) -> Explorer:
     """Instantiate a registered explorer by name."""
+    _load_plugin_explorers()
     try:
         cls = EXPLORERS[name]
     except KeyError:
@@ -207,6 +218,7 @@ def get_explorer(name: str, **params) -> Explorer:
 
 
 def explorer_names() -> List[str]:
+    _load_plugin_explorers()
     return sorted(EXPLORERS)
 
 
@@ -291,7 +303,8 @@ class NSGA2Explorer:
 
     The loop body — including every RNG draw and its order — matches the
     JAX package's ``NSGA2Explorer`` exactly, so fixed-seed fronts are
-    bit-identical to it.
+    bit-identical to it.  A subclass swaps the ranking core by overriding
+    :meth:`rank_crowd`, or the whole search by overriding ``_evolve``.
     """
 
     def __init__(
@@ -323,6 +336,17 @@ class NSGA2Explorer:
             "time_budget_s": self.time_budget_s,
         }
 
+    def rank_crowd(self, objs: List[Objectives], engine) -> tuple:
+        """``(rank, crowd)`` dicts of ``objs`` by index: the front each
+        point lies in and its crowding distance within that front."""
+        fronts = fast_nondominated_sort(objs)
+        rank = {}
+        crowd = {}
+        for fi, front in enumerate(fronts):
+            rank.update({i: fi for i in front})
+            crowd.update(crowding_distance(objs, front))
+        return rank, crowd
+
     def explore(
         self,
         problem: ExplorationProblem,
@@ -331,76 +355,18 @@ class NSGA2Explorer:
         on_generation: Optional[Callable[[int, ExplorationRun], None]] = None,
     ) -> ExplorationRun:
         t0 = time.monotonic()
-        rng = random.Random(self.seed)
-        mode = xi_mode(problem.strategy)
         own_engine = engine is None
         if engine is None:
             engine = problem.make_engine()
         else:
             _check_engine(engine, problem)
-        space = engine.space
         # Snapshot the problem: drivers may mutate e.g. problem.strategy
         # between explores, and the run's provenance must not drift.
         run = ExplorationRun(replace(problem), self.name, self.params())
         ev0, hit0, miss0 = engine.evaluations, engine.hits, engine.misses
 
         try:
-            fix = _xi_fixer(space, mode)
-            pop = engine.evaluate_batch(
-                [fix(space.random(rng, mode)) for _ in range(self.population)]
-            )
-
-            def rank_crowd(population: List[Individual]):
-                objs = [i.objectives for i in population]
-                fronts = fast_nondominated_sort(objs)
-                rank = {}
-                crowd = {}
-                for fi, front in enumerate(fronts):
-                    rank.update({i: fi for i in front})
-                    crowd.update(crowding_distance(objs, front))
-                return rank, crowd
-
-            def tournament(rank, crowd) -> Individual:
-                i, j = rng.randrange(len(pop)), rng.randrange(len(pop))
-                if (rank[i], -crowd.get(i, 0.0)) <= (rank[j], -crowd.get(j, 0.0)):
-                    return pop[i]
-                return pop[j]
-
-            _update_archive(run, pop)
-            run.history.append([i.objectives for i in run.archive])
-
-            for gen in range(self.generations):
-                if self.time_budget_s and time.monotonic() - t0 > self.time_budget_s:
-                    break
-                rank, crowd = rank_crowd(pop)
-                # Create the whole brood first (RNG order identical to
-                # evaluating one-by-one — evaluation never draws from
-                # rng), then decode as one memoized, possibly parallel
-                # batch.
-                children: List[Genotype] = []
-                for _ in range(self.offspring):
-                    p1, p2 = tournament(rank, crowd), tournament(rank, crowd)
-                    child = (
-                        space.crossover(rng, p1.genotype, p2.genotype)
-                        if rng.random() < self.crossover_rate
-                        else p1.genotype
-                    )
-                    children.append(fix(space.mutate(rng, child, xi_mode=mode)))
-                offspring = engine.evaluate_batch(children)
-                merged = pop + offspring
-                rank2, crowd2 = rank_crowd(merged)
-                # elitist μ+λ truncation by (rank, -crowding)
-                order = sorted(
-                    range(len(merged)),
-                    key=lambda i: (rank2[i], -crowd2.get(i, 0.0)),
-                )
-                pop = [merged[i] for i in order[: self.population]]
-                _update_archive(run, pop)
-                run.history.append([i.objectives for i in run.archive])
-                if on_generation:
-                    run.wall_s = time.monotonic() - t0
-                    on_generation(gen, run)
-
+            self._evolve(problem, engine, run, t0, on_generation)
             run.evaluations = engine.evaluations - ev0
             run.cache_hits = engine.hits - hit0
             run.cache_misses = engine.misses - miss0
@@ -412,6 +378,59 @@ class NSGA2Explorer:
             _finalize_hypervolume(run)
         run.wall_s = time.monotonic() - t0
         return run
+
+    def _evolve(self, problem, engine, run, t0, on_generation) -> None:
+        """The generation loop, filling ``run``'s archive and history."""
+        rng = random.Random(self.seed)
+        mode = xi_mode(problem.strategy)
+        space = engine.space
+        fix = _xi_fixer(space, mode)
+        pop = engine.evaluate_batch(
+            [fix(space.random(rng, mode)) for _ in range(self.population)]
+        )
+
+        def rank_crowd(population: List[Individual]):
+            return self.rank_crowd([i.objectives for i in population], engine)
+
+        def tournament(rank, crowd) -> Individual:
+            i, j = rng.randrange(len(pop)), rng.randrange(len(pop))
+            if (rank[i], -crowd.get(i, 0.0)) <= (rank[j], -crowd.get(j, 0.0)):
+                return pop[i]
+            return pop[j]
+
+        _update_archive(run, pop)
+        run.history.append([i.objectives for i in run.archive])
+
+        for gen in range(self.generations):
+            if self.time_budget_s and time.monotonic() - t0 > self.time_budget_s:
+                break
+            rank, crowd = rank_crowd(pop)
+            # Create the whole brood first (RNG order identical to
+            # evaluating one-by-one — evaluation never draws from rng),
+            # then decode as one memoized, possibly parallel batch.
+            children: List[Genotype] = []
+            for _ in range(self.offspring):
+                p1, p2 = tournament(rank, crowd), tournament(rank, crowd)
+                child = (
+                    space.crossover(rng, p1.genotype, p2.genotype)
+                    if rng.random() < self.crossover_rate
+                    else p1.genotype
+                )
+                children.append(fix(space.mutate(rng, child, xi_mode=mode)))
+            offspring = engine.evaluate_batch(children)
+            merged = pop + offspring
+            rank2, crowd2 = rank_crowd(merged)
+            # elitist μ+λ truncation by (rank, -crowding)
+            order = sorted(
+                range(len(merged)),
+                key=lambda i: (rank2[i], -crowd2.get(i, 0.0)),
+            )
+            pop = [merged[i] for i in order[: self.population]]
+            _update_archive(run, pop)
+            run.history.append([i.objectives for i in run.archive])
+            if on_generation:
+                run.wall_s = time.monotonic() - t0
+                on_generation(gen, run)
 
 
 # ==========================================================================

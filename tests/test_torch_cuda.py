@@ -356,3 +356,99 @@ def test_serving_on_the_card_matches_the_cpu(device):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert out["tokens_identical"]
+
+
+# ------------------------------------------------- the device explorer (evo)
+@pytest.mark.parametrize("case", ["xi1", "xi0", "main_path_xi1"])
+def test_relaxed_eval_on_the_card_matches_the_cpu(device, case):
+    """Multicamera: the decode writes the simulator's tables on the card,
+    sim_step runs once a call, and every objective equals the same
+    function on CPU tensors.  ``xi1``/``xi0``: B=256 (8 seeded gene rows
+    tiled), K=16, all five relaxed objectives.  ``main_path_xi1``: the
+    shapes torch_nsga2 gives sim_step on the main path (MRB_Always, B =
+    offspring and B = population, K = k_max = the explorer's sim_iters)."""
+    import inspect
+
+    from repro_torch.core import multicamera
+    from repro_torch.evo import TorchNSGA2Explorer
+
+    if case == "main_path_xi1":
+        K = inspect.signature(TorchNSGA2Explorer).parameters["sim_iters"].default
+        err, cards, _ = chip_smoke.relaxed_identity(
+            multicamera(), 1, device, chip_smoke.EVO_MAIN_OBJECTIVES, K=K,
+            **chip_smoke.EVO_MAIN_IDENTITY)
+        assert K == 32 and [c.shape for c in cards] == [(25, 3), (100, 3)]
+    else:
+        err, cards, _ = chip_smoke.relaxed_identity(multicamera(), int(case[-1]), device)
+        assert [c.shape for c in cards] == [(256, len(chip_smoke.EVO_OBJECTIVES))]
+    assert err == 0.0
+    assert all(bool(torch.isfinite(c[:, 1:]).all()) for c in cards)
+
+
+def test_relaxed_eval_counts_one_launch_per_call(device):
+    import numpy as np
+    from repro_torch.core import ExplorationProblem, paper_architecture, sobel
+    from repro_torch.evo import PopulationLayout
+    from repro_torch.evo.decode import DecodeTables, make_relaxed_eval
+    from repro_torch.kernels import sim_step as kmod
+
+    problem = ExplorationProblem(graph=sobel(), arch=paper_architecture())
+    layout = PopulationLayout(problem.space(), "always")
+    genes = torch.as_tensor(np.random.default_rng(0).integers(
+        0, layout.bounds, size=(40, layout.n_genes)).astype(np.int32), device=device)
+    tab = DecodeTables(problem.space(), (1,) * layout.n_xi)
+    with_sim = make_relaxed_eval(tab, ("sim_period", "memory"), device=device)
+    without = make_relaxed_eval(tab, ("period", "memory"), device=device)
+    before = kmod.launches
+    a, b = with_sim(genes), with_sim(genes)
+    assert kmod.launches == before + 2 and torch.equal(a, b) and a.device.type == "cuda"
+    without(genes)
+    assert kmod.launches == before + 2
+
+
+def test_relaxed_eval_is_inf_where_event_times_wrap(device):
+    """A population whose event times pass 2**31: inf on the card exactly
+    where the CPU's plain program wraps, the other objective finite."""
+    err, (card,), _ = chip_smoke.relaxed_identity(
+        chip_smoke.huge_graph(), 0, device, ("sim_period", "memory"), Bs=(64,))
+    assert bool(torch.isinf(card[:, 0]).any()) and bool(torch.isfinite(card[:, 1]).all())
+
+
+def _sobel_sim_problem(strategy):
+    from repro_torch.core import ExplorationProblem, paper_architecture, sobel
+
+    return ExplorationProblem(graph=sobel(), arch=paper_architecture(), strategy=strategy,
+                              objectives=("sim_period", "memory", "core_cost"))
+
+
+def test_exact_mode_on_the_card_matches_host_nsga2(device):
+    from repro_torch.core import NSGA2Explorer, get_explorer
+
+    problem = _sobel_sim_problem("MRB_Explore")
+    cfg = dict(population=12, offspring=6, generations=3, seed=7)
+    with problem.make_engine(sim_backend="cuda", device=device) as eng:
+        host = NSGA2Explorer(**cfg).explore(problem, engine=eng)
+    with problem.make_engine(sim_backend="cuda", device=device) as eng:
+        dev = get_explorer("torch_nsga2", evaluation="exact", **cfg).explore(problem, engine=eng)
+    assert dev.front == host.front
+    assert dev.history == host.history
+    assert dev.evaluations == host.evaluations
+    assert dev.meta["device"].startswith("cuda") and dev.meta["evaluation"] == "exact"
+
+
+def test_relaxed_mode_on_the_card_repeats_and_launches_per_generation(device):
+    from repro_torch.evo import TorchNSGA2Explorer
+    from repro_torch.kernels import sim_step as kmod
+
+    problem = _sobel_sim_problem("MRB_Always")
+    runs, counts = [], []
+    for _ in range(2):
+        with problem.make_engine(sim_backend="events", device=device) as eng:
+            before = kmod.launches
+            runs.append(TorchNSGA2Explorer(evaluation="relaxed", population=16, offspring=8,
+                                           generations=3, seed=4).explore(problem, engine=eng))
+            counts.append(kmod.launches - before)
+    a, b = runs
+    assert counts == [1 + 3, 1 + 3]     # the initial population, then one per generation
+    assert a.history == b.history and a.front == b.front
+    assert a.meta["relaxed_evaluations"] == 16 + 3 * 8
