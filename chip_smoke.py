@@ -77,7 +77,26 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     simulator, relHV against phase 3's host front (≥ 0.25); (c)
     ``BENCH_evo.json``'s shape (Sobel Reference, population 512, offspring
     256, 5 generations, seed 11): the host ``nsga2`` against ``torch_nsga2``
-    relaxed, warm seconds per generation and relHV (≥ 0.25).
+    relaxed, warm seconds per generation and relHV (≥ 0.25); (b)'s relaxed
+    launches also carry their bound by rounds (the plain program's round
+    counts).
+11. exact decoders and generated scenarios on the card: (a) the ILP path
+    at Sobel on the paper architecture (MRB_Explore, ``decoder="ilp"``
+    with a 2.0 s budget, objectives sim_period / memory / core_cost, host
+    ``nsga2`` population 8, offspring 4, 2 generations, seed 7,
+    ``sim_period`` by the kernel), then ``torch_nsga2`` in exact mode on
+    the same engine with the same front; the number of decodes that
+    proved optimal; (b) the large tier, one generated scenario of each
+    family (``sample_scenarios(seed=0, n=5, size="large")``), MRB_Explore
+    through host ``nsga2`` with caps_hms (16 / 8, 2 generations).  Every
+    feasible schedule (a) decoded, and a seeded sample of at most 8 per
+    scenario of (b) (3 where a graph has more than 64 actors), is
+    re-simulated by the kernel (``batch_simulate``) and the event
+    simulator: identical fire times and periods, zero violations of the
+    independent verifier, equal ``check_sim_invariants`` lists.  Every
+    ``sim_step`` launch of the phase is printed with its shape (B, A,
+    Tmax, K, warps), its ms between CUDA events and its bound by rounds;
+    ``int32_fallbacks`` are reported, not asserted.
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1010,10 +1029,11 @@ def relaxed_identity(g, xi, device, objectives=EVO_OBJECTIVES, distinct=EVO_IDEN
     return max(errs), cards, times
 
 
-def plain_on_cpu(tabs, K, k_max, ports):
+def plain_on_cpu(tabs, K, k_max, ports, stats=None):
     """The plain program on a CPU copy of the card's tables ``tabs`` (one
     ξ pattern: the same graph-derived tensors), run as one batch of all
-    their phenotypes: ``(fire, dead, horizon)`` per table."""
+    their phenotypes: ``(fire, dead, horizon)`` per table; a ``stats``
+    dict receives ``rounds``, one tensor per table."""
     import dataclasses
     import torch
     from repro_torch.sim.batched import simulate_plain
@@ -1028,7 +1048,10 @@ def plain_on_cpu(tabs, K, k_max, ports):
         tabs[0], **{f: getattr(tabs[0], f).cpu() for f in shared},
         **{f: torch.cat([getattr(t, f) for t in tabs]).cpu() for f in per_phenotype})
     sizes = [t.B for t in tabs]
-    return list(zip(*(out.split(sizes) for out in simulate_plain(cpu, K, k_max, ports))))
+    outs = simulate_plain(cpu, K, k_max, ports, stats=stats)
+    if stats is not None:
+        stats["rounds"] = stats["rounds"].split(sizes)
+    return list(zip(*(out.split(sizes) for out in outs)))
 
 
 def huge_graph():
@@ -1218,10 +1241,13 @@ def phase_device_explorer(device, host_front):
     assert all(not kwargs and args[1] == args[2] == k_main for args, kwargs, _ in relaxed) \
         and len(ports) == 1, [(args[1:], kwargs) for args, kwargs, _ in relaxed]
     t0 = time.perf_counter()
-    plain = plain_on_cpu([args[0] for args, _, _ in relaxed], k_main, k_main, ports.pop())
+    plain_stats = {}
+    plain = plain_on_cpu([args[0] for args, _, _ in relaxed], k_main, k_main, ports.pop(),
+                         stats=plain_stats)
     plain_s = time.perf_counter() - t0
     launch_checks = []
-    for (args, _, card), (pf, pd, ph) in zip(relaxed, plain):
+    for (args, _, card), (pf, pd, ph), rounds, ms in zip(relaxed, plain, plain_stats["rounds"],
+                                                          kernel_ms):
         tab = args[0]
         kf, kd, kh = (x.cpu() for x in card)
         err = max(int((kf.long() - pf.long()).abs().max()),
@@ -1229,8 +1255,13 @@ def phase_device_explorer(device, host_front):
                   int((kd.long() - pd.long()).abs().max()))
         assert torch.equal(kf, pf) and torch.equal(kd, pd) and torch.equal(kh, ph), \
             f"main-path sim_step launch at B={tab.B} differs from the plain version by {err}"
+        # the bound by rounds at the relaxed launch shape: the plain
+        # program's round counts equal the kernel's (phase 2)
+        rounds_max = int(rounds.max())
         launch_checks.append(dict(B=tab.B, A=tab.A, Tmax=tab.Tmax, K=k_main, max_abs_err=err,
-                                  dead=int(kd.sum())))
+                                  dead=int(kd.sum()), ms=ms, rounds_max=rounds_max,
+                                  rounds_bound_ms=rounds_max * round_floor_ms(
+                                      plan_of(tab)["threads"], device)))
     assert [c["B"] for c in launch_checks] == (
         [MAIN_PATH["population"]] + [MAIN_PATH["offspring"]] * MAIN_PATH["generations"])
     log("phase device-explorer: main-path launches against the plain version",
@@ -1291,6 +1322,253 @@ def phase_device_explorer(device, host_front):
     return out
 
 
+# ------------------------------------------- exact decoders and scenarios
+EXACT_OBJECTIVES = ("sim_period", "memory", "core_cost")
+# tests/test_explorers.py's golden ILP configuration on Sobel: population 8,
+# offspring 4, 2 generations, seed 7, a 2.0 s ILP budget per decode.
+EXACT_PATH = dict(population=8, offspring=4, generations=2, seed=7)
+EXACT_BUDGET_S = 2.0
+LARGE_PATH = dict(population=16, offspring=8, generations=2, seed=0)
+LARGE_CHECKED = 8        # schedules of a large scenario re-simulated, at most
+LARGE_CHECKED_WIDE = 3   # ... where a transformed graph has more than 64 actors:
+                         # the Python event simulator's cost grows with width
+
+
+def large_tier():
+    """The generated "large" tier, one scenario of each family: the first
+    five draws of ``sample_scenarios(seed=0, size="large")``, which cycle
+    over the families."""
+    from repro_torch.scenarios import FAMILIES, sample_scenarios
+
+    tier = sample_scenarios(seed=0, n=len(FAMILIES), size="large")
+    assert sorted(sc.app.family for sc in tier) == sorted(FAMILIES)
+    return tier
+
+
+@functools.lru_cache(maxsize=None)
+def build_large_case(family, n=4, seed=0):
+    """(transformed graph, arch, schedules) of the large tier's scenario of
+    ``family`` at ξ=1, pipelined: ``n`` seeded caps_hms decodes."""
+    from repro_torch import core
+
+    sc = next(s for s in large_tier() if s.app.family == family)
+    g, arch = sc.build()
+    gt = core.pipeline_delays(
+        core.substitute_mrbs(g, {a: 1 for a in core.multicast_actors(g)})
+    )
+    scheds = random_schedules(gt, arch, n, seed=f"chip-smoke:{sc.name}:1:{seed}")
+    return gt, arch, scheds
+
+
+class LaunchLog:
+    """Records every ``sim_step`` call made while it is entered: the tables'
+    shape, CUDA events around the call and the kernel's round counts, each
+    under the current ``label``.  ``finish`` turns them into rows with ms
+    and the bound by rounds."""
+
+    def __init__(self):
+        self.rows = []
+        self.label = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import sim_step as kmod
+
+        launch = self._launch = kmod.sim_step
+
+        def recorded(tab, K, k_max, ports, stats=None):
+            stats = {} if stats is None else stats
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = launch(tab, K, k_max, ports, stats=stats)
+            end.record()
+            plan = plan_of(tab)
+            self.rows.append(dict(path=self.label, B=tab.B, A=tab.A, Tmax=tab.Tmax, K=K,
+                                  k_max=k_max, warps=plan["warps"], threads=plan["threads"],
+                                  events=(start, end), rounds=stats["rounds"]))
+            return res
+
+        kmod.sim_step = recorded  # batched._run_batch looks it up at each call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import sim_step as kmod
+
+        kmod.sim_step = self._launch
+
+    def finish(self, device):
+        import torch
+
+        torch.cuda.synchronize()
+        for row in self.rows:
+            start, end = row.pop("events")
+            rounds = row.pop("rounds")
+            row["ms"] = start.elapsed_time(end)
+            row["rounds_max"] = int(rounds.max()) if rounds.numel() else 0
+            row["rounds_bound_ms"] = row["rounds_max"] * round_floor_ms(row["threads"], device)
+        return self.rows
+
+
+def feasible_by_xi(engine, individuals):
+    """Feasible decoded individuals grouped by ξ pattern (one transformed
+    graph each)."""
+    groups = {}
+    for ind in individuals:
+        if ind.feasible and ind.schedule is not None:
+            groups.setdefault(ind.genotype.xi, []).append(ind.schedule)
+    return {xi: (engine._transformed(xi), scheds) for xi, scheds in groups.items()}
+
+
+def check_backends(gt, arch, scheds, device):
+    """Three checks on schedules of one transformed graph: the kernel
+    (``batch_simulate``, backend ``"cuda"``, one call) against the
+    event-driven simulator, with identical fire times, periods and deadlock
+    flags; zero violations of the independent verifier; and equal
+    ``check_sim_invariants`` lists from either backend's result.  Returns
+    (the invariant lists, seconds in the event simulator)."""
+    from repro_torch.sim import SimConfig, batch_simulate, check_sim_invariants, simulate
+    from repro_torch.verify import verify_schedule
+
+    cfg = SimConfig(trace=False)
+    kernel = batch_simulate(gt, arch, scheds, cfg, backend="cuda", device=device)
+    lists, events_s = [], 0.0
+    for s, k in zip(scheds, kernel):
+        t0 = time.perf_counter()
+        e = simulate(gt, arch, s, cfg)
+        events_s += time.perf_counter() - t0
+        assert (k.fire_times, k.period, k.deadlocked) == (e.fire_times, e.period, e.deadlocked), \
+            f"{gt.name} (A={len(gt.actors)}): kernel and event simulator differ"
+        report = verify_schedule(gt, arch, s)
+        assert report.ok, f"{gt.name}: {report.summary()}"
+        inv = check_sim_invariants(gt, arch, s, result=k)
+        assert inv == check_sim_invariants(gt, arch, s, result=e), \
+            f"{gt.name}: invariants differ between the kernel's and the events' results"
+        lists.append(inv)
+    return lists, events_s
+
+
+def phase_exact_and_scenarios(device):
+    """Phase 11: (a) the ILP path at Sobel (MRB_Explore, ``decoder="ilp"``,
+    host ``nsga2``, ``sim_period`` by the kernel) and ``torch_nsga2`` in
+    exact mode on the same engine; (b) the generated large tier through
+    host ``nsga2`` with caps_hms.  Their decoded schedules are held, kernel
+    against events, by :func:`check_backends`; every ``sim_step`` launch of
+    the phase is printed with its shape, ms and bound by rounds."""
+    from repro_torch.core import (ExplorationProblem, NSGA2Explorer, decoders, get_explorer,
+                                  paper_architecture, sobel)
+    from repro_torch.sim import batched
+
+    t_phase = time.perf_counter()
+    out = dict(large=[])
+    launches = LaunchLog()
+
+    # (a) the ILP path at Sobel, the paper's app on its architecture
+    problem = ExplorationProblem(graph=sobel(), arch=paper_architecture(), strategy="MRB_Explore",
+                                 decoder="ilp", ilp_budget_s=EXACT_BUDGET_S,
+                                 objectives=EXACT_OBJECTIVES)
+    ilp = decoders.DECODERS["ilp"]
+    proven = []
+
+    def counted(*args, **kwargs):
+        res = ilp(*args, **kwargs)
+        proven.append(res.proven_optimal)
+        return res
+
+    decoders.DECODERS["ilp"] = counted
+    try:
+        with problem.make_engine(sim_backend="cuda", device=device) as eng, launches:
+            launches.label = "ilp_path"
+            reset_counts()
+            batched.int32_fallbacks = 0
+            t0 = time.perf_counter()
+            host = NSGA2Explorer(**EXACT_PATH).explore(problem, engine=eng)
+            host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dev = get_explorer("torch_nsga2", evaluation="exact", **EXACT_PATH).explore(
+                problem, engine=eng)
+            dev_s = time.perf_counter() - t0
+            counts, fallbacks = read_counts(), batched.int32_fallbacks
+            assert counts["sim_step"] > 0, "the ILP path launched no sim_step kernel"
+            assert dev.front == host.front and dev.history == host.history, \
+                "torch_nsga2 exact and host nsga2 differ on the ILP path"
+            assert host.front and all(math.isfinite(v) for p in host.front for v in p)
+            launches.label = "ilp_check"
+            lists, events_s = [], 0.0
+            for gt, scheds in feasible_by_xi(eng, eng._cache.values()).values():
+                got, secs = check_backends(gt, problem.arch, scheds, device)
+                lists += got
+                events_s += secs
+    finally:
+        decoders.DECODERS["ilp"] = ilp
+    out["ilp"] = dict(decodes=len(proven), proven_optimal=sum(proven), host_nsga2_s=host_s,
+                      torch_nsga2_exact_s=dev_s, decode_s=eng.decode_s, sim_s=eng.sim_s,
+                      launches=counts["sim_step"], int32_fallbacks=fallbacks,
+                      front=host.front, checked=len(lists),
+                      invariant_violations=[x for x in lists if x], events_s=events_s)
+    log("phase exact-scenarios: ilp path", json.dumps(out["ilp"]))
+    log(f"phase exact-scenarios: {sum(proven)} of {len(proven)} ILP decodes proved optimal")
+
+    # (b) the generated large tier, caps_hms
+    for sc in large_tier():
+        problem = ExplorationProblem.from_scenario(sc, objectives=EXACT_OBJECTIVES,
+                                                   strategy="MRB_Explore")
+        with problem.make_engine(sim_backend="cuda", device=device) as eng, launches:
+            launches.label = sc.name
+            reset_counts()
+            batched.int32_fallbacks = 0
+            t0 = time.perf_counter()
+            run = NSGA2Explorer(**LARGE_PATH).explore(problem, engine=eng)
+            wall_s = time.perf_counter() - t0
+            counts, fallbacks = read_counts(), batched.int32_fallbacks
+            assert counts["sim_step"] > 0, f"{sc.name}: no sim_step kernel launched"
+            assert run.front and all(math.isfinite(v) for p in run.front for v in p)
+            inds = sorted((ind for ind in eng._cache.values() if ind.feasible),
+                          key=lambda ind: (ind.genotype.xi, ind.genotype.cd, ind.genotype.ba))
+            widths = {len(eng._transformed(ind.genotype.xi).actors) for ind in inds}
+            k = LARGE_CHECKED if max(widths) <= 64 else LARGE_CHECKED_WIDE
+            picked = random.Random(f"chip-smoke:large:{sc.name}").sample(inds, min(k, len(inds)))
+            launches.label = f"{sc.name}:check"
+            lists, events_s, checked_widths = [], 0.0, []
+            for gt, scheds in feasible_by_xi(eng, picked).values():
+                got, secs = check_backends(gt, problem.arch, scheds, device)
+                lists += got
+                events_s += secs
+                checked_widths += [len(gt.actors)] * len(scheds)
+        out["large"].append(dict(
+            scenario=sc.name, actors=[min(widths), max(widths)],
+            cores=len(problem.arch.cores), interconnects=len(problem.arch.interconnects),
+            wall_s=wall_s, decode_s=eng.decode_s, sim_s=eng.sim_s, decodes=run.evaluations,
+            launches=counts["sim_step"], int32_fallbacks=fallbacks, front=len(run.front),
+            checked=len(lists), checked_actors=checked_widths,
+            invariant_violations=[x for x in lists if x], events_s=events_s))
+        log("phase exact-scenarios: large", json.dumps(out["large"][-1]))
+
+    rows = launches.finish(device)
+    for i, row in enumerate(rows):
+        log("phase exact-scenarios: sim_step", i, json.dumps(row))
+    by_shape = {}
+    for row in rows:
+        key = (row["path"].endswith("check"), row["A"], row["warps"])
+        by_shape.setdefault(key, []).append(row)
+    out["shapes"] = [dict(check=check, A=A, warps=warps, launches=len(rs),
+                          B=sorted({r["B"] for r in rs}), K=sorted({r["K"] for r in rs}),
+                          ms=[min(r["ms"] for r in rs), max(r["ms"] for r in rs)],
+                          rounds_bound_ms=[min(r["rounds_bound_ms"] for r in rs),
+                                           max(r["rounds_bound_ms"] for r in rs)])
+                     for (check, A, warps), rs in sorted(by_shape.items())]
+    out["path_launches"] = sum(1 for r in rows if not r["path"].endswith("check"))
+    out["check_launches"] = len(rows) - out["path_launches"]
+    out["kernel_ms"] = sum(r["ms"] for r in rows)
+    out["max_warps"] = max(r["warps"] for r in rows)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("phase exact-scenarios: launches by (check, A, warps)", json.dumps(out["shapes"]))
+    log(f"phase exact-scenarios: kernel = events on {out['ilp']['checked']} ILP schedules and "
+        f"{sum(r['checked'] for r in out['large'])} large-tier schedules; 0 verifier "
+        f"violations; invariant lists equal; {out['path_launches']} path and "
+        f"{out['check_launches']} check launches; {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -1339,6 +1617,7 @@ def main() -> int:
     phase_ring_wrap(device)
     phase_qwen3(device)
     evo = phase_device_explorer(device, main["front_points"])
+    exact = phase_exact_and_scenarios(device)
 
     served = attn_rows[0]
     qwen3_long = next(r for r in attn_rows if r["shape"] == "qwen3_long")
@@ -1355,7 +1634,11 @@ def main() -> int:
              main_path_sim_s=main["sim_s"],
              device_explorer_launches=evo["main_path"]["launches"],
              device_explorer_kernel_ms=evo["main_path"]["relaxed_kernel_ms"],
-             device_explorer_max_abs_err=evo["max_abs_err"]),
+             device_explorer_max_abs_err=evo["max_abs_err"],
+             exact_path_launches=exact["ilp"]["launches"],
+             large_tier_launches=[r["launches"] for r in exact["large"]],
+             exact_scenarios_kernel_ms=exact["kernel_ms"],
+             exact_scenarios_max_warps=exact["max_warps"]),
         dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
              replaces="src/repro/kernels/mrb_ring.py:35",
              launches=serving["launches"]["mrb_append"], max_abs_err=append_err,

@@ -54,7 +54,9 @@ def schedule_from_json(d: Dict[str, Any]) -> Schedule:
 
 
 def problem_from_json(d: Json) -> ExplorationProblem:
-    """An ``ExplorationProblem.to_json()`` with the graphs embedded."""
+    """An ``ExplorationProblem.to_json()`` of either package, with the
+    graphs embedded or as a scenario spec (plain data, rebuilt by the
+    port's own generator)."""
     return ExplorationProblem.from_json(d)
 
 

@@ -1,5 +1,6 @@
 """Host core of the port: graphs, architectures, MRBs, channel placement,
-CAPS-HMS scheduling, and the exploration API (problem / engine / explorers)."""
+CAPS-HMS and exact scheduling, and the exploration API (problem / engine /
+explorers)."""
 from .architecture import ArchitectureGraph, paper_architecture
 from .apps import APPLICATIONS, multicamera, sobel, sobel4, table1_row
 from .binding import (
@@ -60,6 +61,7 @@ from .graph import (
     satisfies_multicast_structure,
     topological_priorities,
 )
+from .ilp import ExactResult, decode_via_ilp
 from .mrb import MRBState, substitute_mrbs
 from .pareto import (
     crowding_distance,

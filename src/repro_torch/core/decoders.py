@@ -4,8 +4,9 @@ A *decoder* turns the genotype-derived inputs — the ξ-transformed graph
 g̃_A, the architecture, per-channel placement decisions C_d, and the actor
 binding β_A — into a phenotype (a :class:`~repro_torch.core.schedule.Schedule`
 plus feasibility).  The paper evaluates two: the CAPS-HMS list-scheduling
-heuristic (§IV) and the exact branch-and-bound "ILP" (§V); this package
-registers the CAPS-HMS heuristic, and an unknown name raises.
+heuristic (§IV) and the exact branch-and-bound "ILP" (§V), both registered
+here; the CP-SAT decoder is registered only where ortools imports, and an
+unknown name raises.
 
 A decoder is any callable with the :class:`Decoder` signature, registered
 by name:
@@ -26,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Protocol, runtime_checkable
 from .architecture import ArchitectureGraph
 from .caps_hms import decode_via_heuristic
 from .graph import ApplicationGraph
+from .ilp import decode_via_ilp
 
 __all__ = [
     "Decoder",
@@ -127,3 +129,44 @@ def _decode_caps_hms(
     """CAPS-HMS heuristic (paper §IV); the budget is ignored — the
     heuristic always terminates quickly."""
     return decode_via_heuristic(g, arch, decisions, actor_binding)
+
+
+@register_decoder("ilp")
+def _decode_ilp(
+    g: ApplicationGraph,
+    arch: ArchitectureGraph,
+    decisions: Dict[str, str],
+    actor_binding: Dict[str, str],
+    *,
+    time_budget_s: Optional[float] = None,
+) -> object:
+    """Exact branch-and-bound modulo scheduler (paper §V); anytime under
+    ``time_budget_s`` (paper default 3 s)."""
+    return decode_via_ilp(
+        g, arch, decisions, actor_binding,
+        time_budget_s=3.0 if time_budget_s is None else time_budget_s,
+    )
+
+
+# Optional: CP-SAT exact decoder, registered only when ortools is importable
+# (extras flag "cpsat"); the module itself imports cleanly without it.
+from .cpsat import HAVE_ORTOOLS as _HAVE_ORTOOLS  # noqa: E402
+
+if _HAVE_ORTOOLS:  # pragma: no cover - ortools absent in the offline image
+    from .cpsat import decode_via_cpsat
+
+    @register_decoder("cpsat")
+    def _decode_cpsat(
+        g: ApplicationGraph,
+        arch: ArchitectureGraph,
+        decisions: Dict[str, str],
+        actor_binding: Dict[str, str],
+        *,
+        time_budget_s: Optional[float] = None,
+    ) -> object:
+        """CP-SAT exact modulo scheduler (same constraint system as "ilp",
+        solved by OR-Tools); anytime under ``time_budget_s``."""
+        return decode_via_cpsat(
+            g, arch, decisions, actor_binding,
+            time_budget_s=3.0 if time_budget_s is None else time_budget_s,
+        )

@@ -17,9 +17,10 @@ Two pieces:
 
 * :class:`ExplorationProblem` — the declarative unit an
   :class:`~repro_torch.core.explorers.Explorer` consumes: application graph
-  + architecture + objectives + ξ-strategy + decoder + constraints.  It is
-  JSON-round-trippable with the graphs embedded, so a problem can be saved
-  alongside its :class:`ExplorationRun`.
+  + architecture + objectives + ξ-strategy + decoder + constraints.  Like
+  :class:`~repro_torch.scenarios.Scenario` specs it is JSON-round-trippable
+  (either embedding the graphs or referencing a scenario spec), so a
+  problem can be saved alongside its :class:`ExplorationRun`.
 """
 from __future__ import annotations
 
@@ -202,7 +203,10 @@ class ExplorationProblem:
 
     ``objectives`` is an *ordered* tuple of registered objective names (the
     order defines the objective-vector layout everywhere downstream).
-    Serialization embeds both graphs.
+    ``scenario`` optionally records the generating
+    :class:`~repro_torch.scenarios.Scenario` spec (JSON dict) for
+    provenance; when present, serialization stores the compact spec instead
+    of the full graphs.
     """
 
     graph: ApplicationGraph
@@ -212,6 +216,7 @@ class ExplorationProblem:
     decoder: str = "caps_hms"
     pipelined: bool = True
     ilp_budget_s: float = 3.0
+    scenario: Optional[Dict[str, Any]] = None
 
     def __post_init__(self) -> None:
         self.objectives = tuple(self.objectives)
@@ -260,16 +265,27 @@ class ExplorationProblem:
         )
 
     # ----------------------------------------------------------- serialize
+    @classmethod
+    def from_scenario(cls, scenario, **kwargs) -> "ExplorationProblem":
+        """Build from a :class:`~repro_torch.scenarios.Scenario` spec,
+        recording it for compact serialization."""
+        g, arch = scenario.build()
+        return cls(graph=g, arch=arch, scenario=scenario.to_json(), **kwargs)
+
     def to_json(self) -> Dict[str, Any]:
-        return {
+        d: Dict[str, Any] = {
             "objectives": list(self.objectives),
             "strategy": self.strategy,
             "decoder": self.decoder,
             "pipelined": self.pipelined,
             "ilp_budget_s": self.ilp_budget_s,
-            "graph": self.graph.to_dict(),
-            "arch": self.arch.to_dict(),
         }
+        if self.scenario is not None:
+            d["scenario"] = self.scenario
+        else:
+            d["graph"] = self.graph.to_dict()
+            d["arch"] = self.arch.to_dict()
+        return d
 
     def dumps(self) -> str:
         return json.dumps(self.to_json(), sort_keys=True)
@@ -286,10 +302,10 @@ class ExplorationProblem:
             ilp_budget_s=d.get("ilp_budget_s", 3.0),
         )
         if "scenario" in d:
-            raise ValueError(
-                "problems given as scenario specs are not supported; "
-                "serialize the problem with its graph and arch embedded"
-            )
+            from ..scenarios import scenario_from_json  # deferred: avoids cycle
+
+            sc = scenario_from_json(d["scenario"])
+            return cls.from_scenario(sc, **common)
         return cls(
             graph=ApplicationGraph.from_dict(d["graph"]),
             arch=ArchitectureGraph.from_dict(d["arch"]),

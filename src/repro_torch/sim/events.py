@@ -3,7 +3,8 @@
 Executes the :class:`~repro_torch.sim.model.SimProgram` dynamical system
 exactly as specified there (fixpoint sweeps in arbitration order, time
 jumping to the next task completion), keeping per-resource trace segments
-that serialize to JSON.
+so a run can be rendered (:mod:`repro_torch.sim.gantt`) and archived as
+JSON.
 
 This backend is the semantic reference: the batched simulator
 (:mod:`repro_torch.sim.batched`) and its CUDA kernel must produce
@@ -14,6 +15,7 @@ batched wrapper routes phenotypes that could overflow int32 here.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -97,6 +99,19 @@ class SimTrace:
             fire_times={a: list(ts) for a, ts in d.get("fire_times", {}).items()},
             meta=dict(d.get("meta", {})),
         )
+
+    def save(self, path: Optional[str] = None, *, out_dir: str = "runs/sim") -> str:
+        if path is None:
+            path = os.path.join(out_dir, f"trace_{self.app}_{self.horizon}.json")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=2, sort_keys=True)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "SimTrace":
+        with open(path) as f:
+            return cls.from_json(json.load(f))
 
 
 @dataclass

@@ -6,11 +6,12 @@ fixture, never at import).  Run on the card with
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 The cases are those of ``chip_smoke.py``: ``sim_step``'s kernel-vs-plain
-phase at its 32 distinct decodes, and the ring kernels' sweeps (exact for
-``mrb_append`` and the fused ``mrb_append_kv``, ω included; 3e-5 float32
-and 2e-2 bfloat16 for ``mrb_decode_attention``, also at ``t = -1``, where
-the answer is the mean of V).  This file imports no JAX: the card's host
-has none.
+phase at its 32 distinct decodes, the large tier's widest scenarios and
+ILP-decoded Sobel schedules against the event simulator, and the ring
+kernels' sweeps (exact for ``mrb_append`` and the fused ``mrb_append_kv``,
+ω included; 3e-5 float32 and 2e-2 bfloat16 for ``mrb_decode_attention``,
+also at ``t = -1``, where the answer is the mean of V).  This file imports
+no JAX: the card's host has none.
 """
 import os
 import sys
@@ -56,6 +57,48 @@ def test_kernel_path_matches_events(device):
     for s, m in zip(scheds[:8], mine):
         e = simulate(gt, arch, s, cfg)
         assert (m.fire_times, m.period, m.deadlocked) == (e.fire_times, e.period, e.deadlocked)
+
+
+def _kernel_vs_events(device, gt, arch, scheds):
+    """The kernel against the plain program on the schedules' tables, then
+    phase 11's checks: through ``batch_simulate`` against the event
+    simulator, the verifier and the invariant lists."""
+    tab = chip_smoke.case_tables(gt, arch, scheds, device)
+    err, _ = chip_smoke.compare_kernel_plain(tab, 16, 16, None)
+    assert err == 0
+    chip_smoke.check_backends(gt, arch, scheds, device)
+    return tab
+
+
+@pytest.mark.parametrize("family,A,warps", [("split_join", 99, 4), ("multicast_tree", 122, 4)])
+def test_kernel_matches_events_on_large_tier(device, family, A, warps):
+    """The large tier's widest scenarios at ξ=1, B=4: four warps."""
+    gt, arch, scheds = chip_smoke.build_large_case(family)
+    tab = _kernel_vs_events(device, gt, arch, scheds)
+    assert (tab.B, tab.A, chip_smoke.plan_of(tab)["warps"]) == (4, A, warps)
+
+
+def test_kernel_matches_events_on_ilp_schedules(device):
+    """Sobel ξ=1 schedules of the exact decoder (proven optimal, shorter
+    than caps_hms's on the same mappings), B=4."""
+    import random
+
+    from repro_torch import core
+
+    gt, arch, _, _ = chip_smoke.build_case("sobel", 1, None)
+    cores = sorted(arch.cores)
+    allowed = {a: [p for p in cores if gt.actors[a].can_run_on(arch.cores[p].ctype)]
+               for a in sorted(gt.actors)}
+    scheds = []
+    for k in (1, 4, 10, 12):
+        rng = random.Random(f"card-ilp:sobel:{k}")
+        ba = {a: rng.choice(allowed[a]) for a in sorted(gt.actors)}
+        cd = {c: rng.choice(core.CHANNEL_DECISIONS) for c in sorted(gt.channels)}
+        res = core.decode_via_ilp(gt, arch, cd, ba, time_budget_s=60.0)
+        assert res.feasible and res.proven_optimal
+        assert res.period < core.decode_via_heuristic(gt, arch, cd, ba).schedule.period
+        scheds.append(res.schedule)
+    _kernel_vs_events(device, gt, arch, scheds)
 
 
 def test_wrapper_rejects_bad_inputs(device):

@@ -98,4 +98,4 @@ def test_default_device_is_the_card():
             pp.make_engine()
     with pytest.raises(KeyError, match="unknown decoder"):
         port.ExplorationProblem(graph=port.sobel(), arch=port.paper_architecture(),
-                                decoder="ilp")
+                                decoder="no_such_decoder")

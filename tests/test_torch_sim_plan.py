@@ -136,6 +136,46 @@ def test_packed_gate_masks_are_lower_batch_masks(name):
     assert np.array_equal(_bits(gout, C), static["outmask"])
 
 
+# (A, C, R, warps) of the large tier's scenarios at ξ=1 (chip_smoke phase 11
+# and the card tests): up to four warps and nine readers of one view
+LARGE = {
+    "camera_pipeline": (33, 31, 2, 2), "multicast_tree": (122, 121, 3, 4),
+    "random_dag": (40, 34, 9, 2), "split_join": (99, 103, 2, 4),
+    "stencil_chain": (34, 33, 3, 2),
+}
+
+
+def _large_tables(family):
+    gt, arch, scheds = chip_smoke.build_large_case(family)
+    static, batched = _lower_batch([lower_phenotype(gt, arch, s) for s in scheds])
+    return static, compact_tables(static, batched, "cpu")
+
+
+@pytest.mark.parametrize("family", sorted(LARGE))
+def test_large_tier_tables_pack_and_plan(family):
+    """The packed tasks and gate masks of the large tier's tables unpack to
+    the tables and the lowering's masks, and the plan holds the actors."""
+    static, tab = _large_tables(family)
+    plan = _plan_of(tab)
+    A, C, R, warps = LARGE[family]
+    assert (tab.A, tab.C, tab.R, tab.B) == (A, C, R, 4)
+    assert (plan["warps"], plan["threads"]) == (warps, 32 * warps)
+    assert plan["threads"] >= A > plan["threads"] - 32
+    assert 0 < plan["smem_bytes"] <= SMEM_LIMIT
+    assert plan["pack"]["words"] == tab.pack.numel()
+    kind, chan, slot, n_tasks = _unpack(tab.pack, tab.A, tab.C, tab.R, tab.Tmax, plan)
+    assert np.array_equal(kind, tab.kind.numpy())
+    assert np.array_equal(chan, tab.chan.numpy())
+    assert np.array_equal(slot, tab.slot.numpy())
+    assert np.array_equal(n_tasks, tab.n_tasks.numpy())
+    words = tab.pack.numpy().view(np.uint32)
+    wv, wc = plan["mask_words"]["views"], plan["mask_words"]["channels"]
+    gin = words[plan["pack"]["gin"]:plan["pack"]["gout"]].reshape(A, wv)
+    gout = words[plan["pack"]["gout"]:plan["pack"]["words"]].reshape(A, wc)
+    assert np.array_equal(_bits(gin, C * R), static["inmask"].reshape(A, C * R))
+    assert np.array_equal(_bits(gout, C), static["outmask"])
+
+
 @pytest.mark.parametrize("inmask,outmask", [
     ([[[False]], [[False]]], [[True], [True]]),   # two writers of channel 0
     ([[[True]], [[True]]], [[False], [False]]),   # two readers of view (0, 0)
