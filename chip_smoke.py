@@ -97,6 +97,33 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     ``sim_step`` launch of the phase is printed with its shape (B, A,
     Tmax, K, warps), its ms between CUDA events and its bound by rounds;
     ``int32_fallbacks`` are reported, not asserted.
+12. the paper's campaign through ``python -m repro_torch``'s entry point
+    (``repro_torch.cli.main`` in process, ``--device cuda``): (a) a spec
+    written from code, Sobel, Sobel4 and Multicamera on the paper
+    architecture at full size, objectives sim_period / memory /
+    core_cost, strategies Reference, MRB_Always and MRB_Explore with
+    ``nsga2`` (population 100, offspring 25, seed 0, generations cut to
+    ``CAMPAIGN_GENERATIONS``), ``torch_nsga2`` relaxed on MRB_Always, and
+    one ``sim_backend="auto"`` cell (Sobel MRB_Explore); (b) ``campaign
+    run --jobs 1``, kernel counts reset just before and read just after:
+    every cell completed, ``sim_step`` launched, the ``auto`` cell's
+    choices recorded, every ``nsga2`` cell of Sobel and Sobel4 equal to a
+    direct ``NSGA2Explorer`` run, up to 8 archived schedules per cell
+    (4 at Multicamera) kernel = events (phase 11's checks) with their
+    archived ``sim_period``, and ``campaign report --verify`` with 0
+    violations; each cell's wall, ``engine.decode_s``, ``engine.sim_s``,
+    launches and CUDA-event kernel ms are printed; (c) ``campaign
+    resume`` after one Sobel artifact is deleted: only that cell re-runs,
+    the manifest stays byte-identical, the front equal; (d) a Sobel-only
+    copy as a subprocess, ``python -m repro_torch campaign run --jobs 2``
+    (a spawn pool of two workers on the card), fronts equal to (b)'s;
+    (e) one Sobel MRB_Explore cell (``torch_nsga2`` exact) with
+    recording on, ``trace export --min-cats 4`` (``sim.execute`` carrying
+    ``backend="cuda"``) and the ``trace summary`` table; (f) the
+    ``auto`` backend's crossover: wall ms of one ξ=1 group at B = 1, 2,
+    4, 8, 16 through the event simulator and through the kernel, at
+    Sobel and Multicamera, and the least B at which the kernel is no
+    slower (``AUTO_MIN_BATCH`` is set from it).
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1569,6 +1596,337 @@ def phase_exact_and_scenarios(device):
     return out
 
 
+# --------------------------------------- the paper's campaign through the CLI
+# Phase 12's campaign: the paper's three apps on its 24-core, 5-interconnect
+# target at full size, population 100, offspring 25, seed 0; the paper runs
+# 2,500 generations, cut here to CAMPAIGN_GENERATIONS (generations only).
+CAMPAIGN_GENERATIONS = 2
+CAMPAIGN_PARAMS = dict(population=100, offspring=25, generations=CAMPAIGN_GENERATIONS, seed=0)
+CAMPAIGN_APPS = ("Sobel", "Sobel4", "Multicamera")
+CAMPAIGN_DIRECT = ("Sobel", "Sobel4")    # nsga2 cells re-run directly and compared
+CAMPAIGN_CHECKED = {"Sobel": 8, "Sobel4": 8, "Multicamera": 4}  # archived schedules
+# per cell held kernel = events (the event simulator takes ~0.6 s a
+# Multicamera schedule)
+CROSSOVER_BATCHES = (1, 2, 4, 8, 16)
+
+
+def campaign_spec(name="paper-campaign", apps=CAMPAIGN_APPS, strategies=None, explorers=None,
+                  backends=("cuda", "auto")):
+    """The phase's campaign as JSON: apps × strategies × explorers ×
+    sim_backend, with ``torch_nsga2`` (relaxed) on MRB_Always only and
+    ``auto`` on one cell, Sobel MRB_Explore ``nsga2``."""
+    from repro_torch import core
+
+    arch = core.paper_architecture().to_dict()
+    graphs = {"Sobel": core.sobel, "Sobel4": core.sobel4, "Multicamera": core.multicamera}
+    return {
+        "name": name,
+        "problems": [{"label": app, "graph": graphs[app]().to_dict(), "arch": arch,
+                      "objectives": ["sim_period", "memory", "core_cost"]} for app in apps],
+        "axes": {"strategy": list(strategies or ("Reference", "MRB_Always", "MRB_Explore")),
+                 "sim_backend": list(backends),
+                 "explorer": list(explorers or ("nsga2", "torch_nsga2"))},
+        "explorer": "nsga2",
+        "explorer_params": dict(CAMPAIGN_PARAMS),
+        "overrides": [
+            {"match": {"explorer": "torch_nsga2", "strategy": ["Reference", "MRB_Explore"]},
+             "skip": True},
+            {"match": {"sim_backend": "auto", "explorer": "torch_nsga2"}, "skip": True},
+            {"match": {"sim_backend": "auto", "strategy": ["Reference", "MRB_Always"]},
+             "skip": True},
+            {"match": {"sim_backend": "auto", "problem": ["Sobel4", "Multicamera"]},
+             "skip": True},
+            {"match": {"explorer": "torch_nsga2"},
+             "set": {"explorer_params": {"evaluation": "relaxed"}}},
+        ],
+    }
+
+
+def write_spec(path, spec):
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def cli_out(argv):
+    """``repro_torch.cli.main(argv)`` with its standard output captured:
+    (exit code, the text it printed)."""
+    import contextlib
+    import io
+
+    from repro_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def check_archive(cell, art, device, limit):
+    """Re-decode up to ``limit`` archived genotypes of one cell; their
+    archived ``sim_period`` equals the event simulator's, and the kernel
+    equals the event simulator on their schedules (phase 11's
+    :func:`check_backends`: also the verifier and the invariants)."""
+    from repro_torch.core import ExplorationProblem
+    from repro_torch.core.dse import Genotype, GenotypeSpace, evaluate_genotype, transformed_graph
+    from repro_torch.sim import SimConfig, simulate_period
+
+    problem = ExplorationProblem.from_json(cell.problem)
+    space = GenotypeSpace(problem.graph, problem.arch)
+    groups = {}
+    for entry in art["run"]["archive"][:limit]:
+        gd = entry["genotype"]
+        geno = Genotype(tuple(gd["xi"]), tuple(gd["cd"]), tuple(gd["ba"]))
+        ind = evaluate_genotype(space, geno, decoder=problem.decoder,
+                                ilp_budget_s=problem.ilp_budget_s, pipelined=problem.pipelined)
+        assert ind.feasible, f"{cell.tag}: an archived genotype no longer decodes"
+        groups.setdefault(geno.xi, []).append((ind.schedule, entry["objectives"][0]))
+    checked = 0
+    for xi, pairs in groups.items():
+        gt = transformed_graph(space, xi, problem.pipelined)
+        scheds = [s for s, _ in pairs]
+        check_backends(gt, problem.arch, scheds, device)
+        for s, period in pairs:
+            assert period == simulate_period(gt, problem.arch, s, SimConfig(trace=False)), \
+                f"{cell.tag}: archived sim_period differs from the event simulator"
+        checked += len(scheds)
+    return checked
+
+
+def crossover(device, reps=2):
+    """Phase 12 (f): wall ms of one ξ=1 group of B phenotypes through the
+    event simulator (one run each) and through the kernel
+    (``batch_simulate``, lowering included), min of ``reps``; the crossing
+    is the least B at which the kernel is no slower."""
+    from repro_torch.sim import batch_simulate_periods, simulate_period
+
+    rows, crossing = [], {}
+    for app in ("sobel", "multicamera"):
+        gt, arch, scheds, cfg = build_case(app, 1, None, n=max(CROSSOVER_BATCHES))
+        batch_simulate_periods(gt, arch, scheds[:2], cfg, backend="cuda", device=device)
+        for B in CROSSOVER_BATCHES:
+            sub = scheds[:B]
+            walls = {"events": [], "cuda": []}
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                ev = [simulate_period(gt, arch, s, cfg) for s in sub]
+                walls["events"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                cu = batch_simulate_periods(gt, arch, sub, cfg, backend="cuda", device=device)
+                walls["cuda"].append(time.perf_counter() - t0)
+                assert cu == ev, f"{app} B={B}: kernel and event periods differ"
+            row = dict(app=app, A=len(gt.actors), B=B,
+                       events_ms=min(walls["events"]) * 1e3, cuda_ms=min(walls["cuda"]) * 1e3)
+            rows.append(row)
+            log("phase campaign: crossover", json.dumps(row))
+            if app not in crossing and row["cuda_ms"] <= row["events_ms"]:
+                crossing[app] = B
+    return rows, crossing
+
+
+def phase_campaign(device):
+    """Phase 12: the paper's campaign through ``python -m repro_torch``'s
+    entry point, in process: (a) the campaign spec written from code; (b)
+    ``campaign run --jobs 1 --device cuda`` with the kernel counts reset
+    just before and read just after, then its checks; (c) ``campaign
+    resume`` after one Sobel artifact is deleted; (d) a Sobel-only copy
+    through a ``--jobs 2`` spawn pool in a subprocess; (e) one Sobel
+    MRB_Explore cell with recording on, ``trace export`` and ``trace
+    summary``; (f) the ``auto`` backend's crossover batch size."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import Campaign, ExplorationProblem, NSGA2Explorer, RunStore
+    from repro_torch.core import campaign as campaign_mod
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.sim import batched
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-campaign-")
+    out = {}
+    try:
+        # (a) the spec
+        spec = campaign_spec()
+        spec_path = write_spec(os.path.join(tmp, "campaign.json"), spec)
+        camp = Campaign.from_json(spec)
+        cells = camp.expand()
+        root = os.path.join(tmp, "campaigns")
+        store = RunStore(os.path.join(root, camp.campaign_id()))
+        log(f"phase campaign: {len(cells)} cells, campaign {camp.campaign_id()}, "
+            f"generations cut to {CAMPAIGN_GENERATIONS}")
+
+        # (b) the campaign through the CLI, each cell's engine seconds and
+        # the kernel's CUDA-event time per launch
+        events, per_cell = [], {}
+        launch, run_cell = kmod.sim_step, campaign_mod.run_cell
+
+        def timed_launch(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = launch(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return res
+
+        def timed_run_cell(cell, engine=None):
+            d0, s0, n0, t0 = engine.decode_s, engine.sim_s, len(events), time.perf_counter()
+            art = run_cell(cell, engine=engine)
+            per_cell[cell.tag] = dict(wall_s=time.perf_counter() - t0,
+                                      decode_s=engine.decode_s - d0, sim_s=engine.sim_s - s0,
+                                      launches=(n0, len(events)))
+            return art
+
+        kmod.sim_step, campaign_mod.run_cell = timed_launch, timed_run_cell
+        batched.int32_fallbacks = 0
+        t0 = time.perf_counter()
+        try:
+            reset_counts()
+            rc, text = cli_out(["campaign", "run", spec_path, "--root", root, "--jobs", "1",
+                                "--device", "cuda"])
+            counts = read_counts()
+        finally:
+            kmod.sim_step, campaign_mod.run_cell = launch, run_cell
+        run_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for line in text.splitlines():
+            log("phase campaign: cli |", line)
+        assert rc == 0, f"campaign run exited {rc}"
+        report = store.read_report()
+        assert report["n_completed"] == len(cells) and not report["missing"], report["missing"]
+        assert counts["sim_step"] > 0, "the campaign launched no sim_step kernel"
+        assert counts["sim_step"] == len(events)
+        kernel_ms = [s.elapsed_time(e) for s, e in events]
+        for cell in cells:
+            row = per_cell[cell.tag]
+            a, b = row.pop("launches")
+            row.update(launches=b - a, kernel_ms=sum(kernel_ms[a:b]),
+                       front=len(report["cells"][cell.tag]["front"]))
+            log("phase campaign: cell", cell.tag, json.dumps(row))
+        auto = [c for c in cells if c.engine.get("sim_backend") == "auto"]
+        assert len(auto) == 1
+        choices = report["cells"][auto[0].tag]["meta"].get("sim_backend_choices")
+        assert choices, "the auto cell recorded no backend choice"
+        log("phase campaign: auto cell's choices", json.dumps(choices))
+        out["run"] = dict(cells=len(cells), wall_s=run_s, launches=counts["sim_step"],
+                          kernel_ms=sum(kernel_ms), counts=counts,
+                          int32_fallbacks=batched.int32_fallbacks, auto_choices=choices)
+        log("phase campaign: run", json.dumps(out["run"]))
+
+        t0 = time.perf_counter()
+        direct = 0
+        for cell in cells:
+            if cell.explorer != "nsga2" or cell.coords["problem"] not in CAMPAIGN_DIRECT:
+                continue
+            problem = ExplorationProblem.from_json(cell.problem)
+            with problem.make_engine(device=device, **cell.engine) as eng:
+                run = NSGA2Explorer(**cell.explorer_params).explore(problem, engine=eng)
+            got = [tuple(p) for p in report["cells"][cell.tag]["front"]]
+            assert sorted(run.front) == sorted(got), f"{cell.tag}: campaign and direct fronts differ"
+            direct += 1
+        log(f"phase campaign: {direct} nsga2 cells equal to direct explorer runs "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        checked = sum(check_archive(c, store.load_cell(c.spec_hash()), device,
+                                    CAMPAIGN_CHECKED[c.coords["problem"]]) for c in cells)
+        log(f"phase campaign: kernel = events on {checked} archived schedules "
+            f"({time.perf_counter() - t0:.1f} s)")
+        rc, text = cli_out(["campaign", "report", camp.campaign_id(), "--root", root, "--verify"])
+        verified = store.read_report()
+        violations = sum(r["verify"]["violations"] for r in verified["cells"].values())
+        vchecked = sum(r["verify"]["checked"] for r in verified["cells"].values())
+        assert rc == 0 and violations == 0 and vchecked > 0, f"report --verify: {violations}"
+        log(f"phase campaign: report --verify: {vchecked} schedules, 0 violations")
+        out["checks"] = dict(direct=direct, archived=checked, verified=vchecked)
+
+        # (c) resume after one Sobel cell's artifact is lost
+        victim = next(c for c in cells if c.coords["problem"] == "Sobel"
+                      and c.coords["strategy"] == "MRB_Explore" and c.explorer == "nsga2"
+                      and c.engine.get("sim_backend") == "cuda")
+        manifest_path = os.path.join(store.root, "manifest.json")
+        with open(manifest_path, "rb") as f:
+            manifest = f.read()
+        published = len(store.success_log())
+        store.delete_cell(victim.spec_hash())
+        rc, _ = cli_out(["campaign", "resume", camp.campaign_id(), "--root", root,
+                         "--jobs", "1", "--device", "cuda"])
+        assert rc == 0
+        with open(manifest_path, "rb") as f:
+            assert f.read() == manifest, "the manifest changed on resume"
+        redone = [r["spec"] for r in store.success_log()[published:]]
+        assert redone == [victim.spec_hash()], f"resume re-executed {redone}"
+        assert store.read_report()["cells"][victim.tag]["front"] == \
+            report["cells"][victim.tag]["front"]
+        log(f"phase campaign: resume re-executed only {victim.tag}; manifest byte-identical")
+
+        # (d) the spawn pool on the card, in a subprocess
+        sobel_spec = campaign_spec(name="paper-campaign-sobel", apps=("Sobel",))
+        sobel_path = write_spec(os.path.join(tmp, "sobel.json"), sobel_spec)
+        pool_root = os.path.join(tmp, "pool")
+        env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "campaign", "run", sobel_path,
+             "--root", pool_root, "--jobs", "2", "--device", "cuda"],
+            env=env, capture_output=True, text=True, timeout=600,
+        )
+        pool_s = time.perf_counter() - t0
+        assert proc.returncode == 0, f"spawn pool run exited {proc.returncode}:\n{proc.stderr}"
+        pool_camp = Campaign.from_json(sobel_spec)
+        pool_store = RunStore(os.path.join(pool_root, pool_camp.campaign_id()))
+        pool_report = pool_store.read_report()
+        assert pool_report["n_completed"] == len(pool_camp.expand())
+        for tag, row in pool_report["cells"].items():
+            assert row["front"] == report["cells"][tag]["front"], f"{tag}: pool front differs"
+        owners = sorted({r["owner"].rsplit(":", 1)[-1] for r in pool_store.success_log()})
+        assert owners and all(o.startswith("w") for o in owners), owners
+        out["pool"] = dict(cells=pool_report["n_completed"], wall_s=pool_s, workers=owners)
+        log("phase campaign: spawn pool", json.dumps(out["pool"]))
+
+        # (e) one Sobel MRB_Explore cell with recording on
+        trace_spec = campaign_spec(name="paper-campaign-trace", apps=("Sobel",),
+                                   strategies=("MRB_Explore",), explorers=("torch_nsga2",),
+                                   backends=("cuda",))
+        trace_spec["overrides"] = []   # torch_nsga2 in exact mode: host loop, device ranking
+        trace_path = write_spec(os.path.join(tmp, "trace.json"), trace_spec)
+        obs_dir = os.path.join(tmp, "obs")
+        obs.configure(True, obs_dir)
+        try:
+            rc, _ = cli_out(["campaign", "run", trace_path, "--root", os.path.join(tmp, "traced"),
+                             "--device", "cuda"])
+        finally:
+            obs.shutdown()
+            obs.configure(None)
+        assert rc == 0
+        trace_out = os.path.join(tmp, "trace-export.json")
+        rc, text = cli_out(["trace", "export", "--obs-dir", obs_dir, "--out", trace_out,
+                            "--min-cats", "4"])
+        assert rc == 0, text
+        log("phase campaign: trace export |", text.strip())
+        with open(trace_out) as f:
+            trace = json.load(f)
+        cats = set(obs.validate_chrome_trace(trace)["cats"])
+        assert {"engine", "explorer", "sim"} <= cats and cats & {"runstore", "evo"}, cats
+        executes = [e for e in trace["traceEvents"] if e["name"] == "sim.execute"]
+        assert executes and all(e["args"]["backend"] == "cuda" for e in executes)
+        rc, text = cli_out(["trace", "summary", "--obs-dir", obs_dir, "--top", "8"])
+        assert rc == 0 and "self" in text
+        for line in text.splitlines():
+            log("phase campaign: trace summary |", line)
+        out["trace"] = dict(cats=sorted(cats), sim_execute_spans=len(executes))
+
+        # (f) auto's crossover
+        rows, crossing = crossover(device)
+        out["crossover"] = dict(crossing=crossing, rows=rows)
+        log("phase campaign: auto crossover batch size", json.dumps(crossing))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase campaign: {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -1618,6 +1976,7 @@ def main() -> int:
     phase_qwen3(device)
     evo = phase_device_explorer(device, main["front_points"])
     exact = phase_exact_and_scenarios(device)
+    campaign = phase_campaign(device)
 
     served = attn_rows[0]
     qwen3_long = next(r for r in attn_rows if r["shape"] == "qwen3_long")
@@ -1638,7 +1997,10 @@ def main() -> int:
              exact_path_launches=exact["ilp"]["launches"],
              large_tier_launches=[r["launches"] for r in exact["large"]],
              exact_scenarios_kernel_ms=exact["kernel_ms"],
-             exact_scenarios_max_warps=exact["max_warps"]),
+             exact_scenarios_max_warps=exact["max_warps"],
+             campaign_launches=campaign["run"]["launches"],
+             campaign_kernel_ms=campaign["run"]["kernel_ms"],
+             auto_crossover_batch=campaign["crossover"]["crossing"]),
         dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
              replaces="src/repro/kernels/mrb_ring.py:35",
              launches=serving["launches"]["mrb_append"], max_abs_err=append_err,

@@ -1,6 +1,6 @@
 """Host core of the port: graphs, architectures, MRBs, channel placement,
-CAPS-HMS and exact scheduling, and the exploration API (problem / engine /
-explorers)."""
+CAPS-HMS and exact scheduling, the exploration API (problem / engine /
+explorers), and campaigns over the run store."""
 from .architecture import ArchitectureGraph, paper_architecture
 from .apps import APPLICATIONS, multicamera, sobel, sobel4, table1_row
 from .binding import (
@@ -21,6 +21,8 @@ from .decoders import (
     register_decoder,
 )
 from .dse import (
+    DSEConfig,
+    DSEResult,
     Genotype,
     GenotypeSpace,
     Individual,
@@ -29,9 +31,25 @@ from .dse import (
     infeasible_objectives,
     pipeline_delays,
     transformed_graph,
+    run_dse,
     xi_mode,
 )
-from .engine import CACHE_MODES, SIM_BACKENDS, EvaluationEngine, decode_key
+from .campaign import (
+    Campaign,
+    CampaignCell,
+    CampaignResult,
+    CampaignRunner,
+    build_report,
+)
+from .engine import (
+    AUTO_MIN_BATCH,
+    CACHE_MODES,
+    SIM_BACKENDS,
+    EvaluationEngine,
+    decode_key,
+    resolve_sim_backend,
+)
+from .runstore import RunStore, canonical_json
 from .explorers import (
     EXPLORERS,
     ExplorationRun,

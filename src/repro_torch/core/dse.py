@@ -12,8 +12,10 @@ Objectives are pluggable (:mod:`repro_torch.core.problem`); the paper's are
 (period P, memory footprint M_F, core cost K), minimized.
 
 This module keeps the genotype machinery (:class:`GenotypeSpace`,
-:func:`evaluate_genotype`); the search loop is
-:class:`repro_torch.core.explorers.NSGA2Explorer`.
+:func:`evaluate_genotype`) and the paper-configured `run_dse`/`DSEConfig`
+entry point, a thin wrapper over
+:class:`repro_torch.core.explorers.NSGA2Explorer` driving an
+:class:`repro_torch.core.problem.ExplorationProblem`.
 
 Paper experiment settings: population 100, 25 offspring per generation,
 crossover rate 0.95, NSGA-II elitist selection.  Strategies:
@@ -24,7 +26,7 @@ crossover rate 0.95, NSGA-II elitist selection.  Strategies:
 from __future__ import annotations
 
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from .architecture import ArchitectureGraph
@@ -32,10 +34,13 @@ from .binding import CHANNEL_DECISIONS
 from .decoders import get_decoder
 from .graph import ApplicationGraph, multicast_actors
 from .mrb import substitute_mrbs
+from .pareto import nondominated
 from .problem import Objective, STRATEGIES, EvalContext, resolve_objectives
 from .schedule import Schedule
 
 __all__ = [
+    "DSEConfig",
+    "DSEResult",
     "Genotype",
     "GenotypeSpace",
     "Individual",
@@ -46,6 +51,7 @@ __all__ = [
     "infeasible_objectives",
     "STRATEGIES",
     "xi_mode",
+    "run_dse",
 ]
 
 Objectives = Tuple[float, ...]  # ordered objective vector, all minimized
@@ -221,3 +227,115 @@ def xi_mode(strategy: str) -> str:
         raise ValueError(
             f"unknown strategy {strategy!r}; expected one of {STRATEGIES}"
         ) from None
+
+
+@dataclass
+class DSEConfig:
+    strategy: str = "MRB_Explore"          # Reference | MRB_Always | MRB_Explore
+    decoder: str = "caps_hms"              # any repro_torch.core.decoders registry name
+    population: int = 100
+    offspring: int = 25
+    generations: int = 2500
+    crossover_rate: float = 0.95
+    ilp_budget_s: float = 3.0
+    seed: int = 0
+    pipelined: bool = True
+    time_budget_s: Optional[float] = None  # wall-clock cap for benchmarks
+    # Evaluation-engine knobs (see repro_torch.core.engine). All settings
+    # produce bit-identical Pareto fronts under a fixed seed; they only
+    # change how much decoding work is shared/parallelized.
+    cache_mode: str = "canonical"          # canonical | exact | none
+    cache_max_entries: Optional[int] = None
+    n_workers: int = 0                     # >0: process-parallel decode
+
+
+@dataclass
+class DSEResult:
+    config: DSEConfig
+    archive: List[Individual] = field(default_factory=list)  # nondominated-so-far
+    history: List[List[Objectives]] = field(default_factory=list)  # per generation
+    evaluations: int = 0   # decodes actually performed (cache misses)
+    wall_s: float = 0.0
+    cache_hits: int = 0
+    cache_misses: int = 0
+
+    @property
+    def front(self) -> List[Objectives]:
+        return nondominated([i.objectives for i in self.archive if i.feasible])
+
+
+def run_dse(
+    g: ApplicationGraph,
+    arch: ArchitectureGraph,
+    config: DSEConfig,
+    *,
+    on_generation: Optional[Callable[[int, "DSEResult"], None]] = None,
+    engine=None,
+    device="cuda",
+) -> DSEResult:
+    """Paper-configured NSGA-II exploration (Fig. 6): builds an
+    :class:`~repro_torch.core.problem.ExplorationProblem` with the paper's
+    three objectives and runs it through
+    :class:`~repro_torch.core.explorers.NSGA2Explorer`.  Fronts are
+    bit-identical to the JAX package's ``run_dse`` under a fixed seed.
+
+    Decoding goes through an :class:`repro_torch.core.engine.EvaluationEngine`
+    (memoized, optionally process-parallel) on ``device`` (the card unless
+    the caller asks for ``"cpu"``).  Pass ``engine`` to share its decode
+    cache across runs — e.g. across strategies on the same app; the
+    engine's decoder settings and device then take precedence over
+    ``config``'s and ``device``.  All engine configurations yield
+    bit-identical fronts under a fixed seed.
+    """
+    from .explorers import NSGA2Explorer  # deferred: explorers import this module
+    from .problem import ExplorationProblem
+
+    problem = ExplorationProblem(
+        graph=g,
+        arch=arch,
+        strategy=config.strategy,
+        decoder=config.decoder,
+        pipelined=config.pipelined,
+        ilp_budget_s=config.ilp_budget_s,
+    )
+    # DSEResult has no hypervolume trajectory, so don't pay for one.
+    explorer = NSGA2Explorer(
+        population=config.population,
+        offspring=config.offspring,
+        generations=config.generations,
+        crossover_rate=config.crossover_rate,
+        seed=config.seed,
+        time_budget_s=config.time_budget_s,
+        track_hypervolume=False,
+    )
+
+    own_engine = engine is None
+    if engine is None:
+        engine = problem.make_engine(
+            cache_mode=config.cache_mode,
+            max_entries=config.cache_max_entries,
+            n_workers=config.n_workers,
+            device=device,
+        )
+
+    result = DSEResult(config)
+
+    def sync(run) -> DSEResult:
+        result.archive = run.archive
+        result.history = run.history
+        result.evaluations = run.evaluations
+        result.cache_hits = run.cache_hits
+        result.cache_misses = run.cache_misses
+        result.wall_s = run.wall_s
+        return result
+
+    cb = None
+    if on_generation is not None:
+        cb = lambda gen, run: on_generation(gen, sync(run))
+
+    try:
+        run = explorer.explore(problem, engine=engine, on_generation=cb)
+    finally:
+        if own_engine:
+            engine.close()
+    return sync(run)

@@ -26,11 +26,24 @@ delays) depends only on the ξ bits; the engine memoizes
 shared read-only graph.
 
 **Batched device simulation.**  With ``sim_period`` among the objectives
-and ``sim_backend`` ``"cuda"`` (the default) or ``"torch"``, decodes carry
-the analytic period as a placeholder and every ξ group of a batch is then
-simulated in one call on the engine's device and patched — one NSGA-II
-generation is one device call per ξ group.  A failure of that call raises:
-there is no silent fallback to another backend.
+and ``sim_backend`` ``"cuda"`` (the default), ``"torch"`` or ``"auto"``,
+decodes carry the analytic period as a placeholder and every ξ group of a
+batch is then simulated in one call on the engine's device and patched —
+one NSGA-II generation is one device call per ξ group.  ``"auto"`` picks
+the backend of each ξ group (:func:`resolve_sim_backend`).
+
+**No fallback.**  This is the one deliberate difference from the JAX
+package's engine, which catches a failure of its batched simulator, opens
+a circuit breaker and degrades the ξ group (and every later one) to the
+event simulator.  Here a failure of the batched call — a kernel that does
+not build or launch, or a fault fired at the ``engine.sim_batch`` site —
+raises out of :meth:`EvaluationEngine.evaluate_batch`.  There is no
+breaker and no ``sim_degraded`` count.
+
+**Telemetry.**  Spans and counters carry the JAX package's names:
+``engine.transform``, ``engine.decode``, ``engine.sim_patch``, the
+``engine.backend_resolved`` event, and the ``engine.cache_hits`` /
+``engine.cache_misses`` counters (:mod:`repro_torch.obs`).
 
 **Process-parallel decode.**  ``n_workers > 0`` decodes cache misses of a
 batch in a ``ProcessPoolExecutor`` with a ``spawn`` context (the parent may
@@ -45,6 +58,9 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
+from .. import faults, obs
 from ..device import resolve_device
 from .decoders import get_decoder
 from .dse import (
@@ -59,6 +75,8 @@ from .problem import Objective, resolve_objectives
 __all__ = [
     "EvaluationEngine",
     "decode_key",
+    "resolve_sim_backend",
+    "AUTO_MIN_BATCH",
     "CACHE_MODES",
     "SIM_BACKENDS",
 ]
@@ -74,9 +92,54 @@ CACHE_MODES = ("canonical", "exact", "none")
 #                    launch of the CUDA kernel (repro_torch.kernels.sim_step)
 #                    and patched;
 #   "torch"          deferred like "cuda", through the plain batched torch
-#                    program on the engine's device.
+#                    program on the engine's device;
+#   "auto"           deferred; each ξ group picks events / cuda / torch
+#                    from its batch size and the engine's device
+#                    (resolve_sim_backend); choices are counted in
+#                    ``engine.sim_backend_choices`` and surfaced in
+#                    ``ExplorationRun.meta``.
 # All routes yield identical values (enforced backend parity).
-SIM_BACKENDS = (None, "events", "cuda", "torch")
+SIM_BACKENDS = (None, "auto", "events", "cuda", "torch")
+
+# "auto" threshold: below AUTO_MIN_BATCH phenotypes a ξ group goes to the
+# event simulator.  Set from chip_smoke.py phase 12 (f) on an NVIDIA H100
+# 80GB HBM3 at a 700.00 W power limit: the kernel path (lowering, launch
+# and copy back included) was faster than the event simulator at every
+# batch size from 1 (Sobel 1.70 against 3.32 ms, Multicamera 14.50
+# against 492.14 ms at B=1), so every ξ group goes to the kernel.  (The JAX
+# package's 4 was measured on a CPU.)  On a CPU engine the plain program
+# is far slower than the event simulator at small batches; pass
+# sim_backend="events" there.
+AUTO_MIN_BATCH = 1
+
+
+def _task_count(graph) -> int:
+    """Structure-size proxy: segments in the simulator's task table (one
+    read per in-channel, one write per out-channel, one execute per actor)."""
+    return sum(
+        len(graph.in_channels(a)) + len(graph.out_channels(a)) + 1
+        for a in graph.actors
+    )
+
+
+def resolve_sim_backend(batch_size: int, n_tasks: int, device) -> str:
+    """Concrete backend for one ξ group under ``sim_backend="auto"``.
+
+    * groups below ``AUTO_MIN_BATCH`` phenotypes → ``"events"``: one exact
+      event-driven run each beats a batched call at that size (on the
+      card no group size does, so the threshold is 1);
+    * otherwise ``"cuda"`` (the kernel) on a CUDA engine and ``"torch"``
+      (the plain batched program) on a CPU engine.
+
+    ``n_tasks`` (:func:`_task_count` of the group's graph) is taken for
+    the reference's signature and recorded, but chooses nothing: the JAX
+    package's ``AUTO_CPU_MAX_TASKS`` chose between its two JAX programs on
+    a CPU (interpreted Pallas kernel or fused lax rounds), and the port has
+    one batched program per device, so it has no counterpart here.
+    """
+    if batch_size < AUTO_MIN_BATCH:
+        return "events"
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
 def _analytic_period_placeholder(ctx) -> float:
@@ -177,6 +240,8 @@ class EvaluationEngine:
 
     ``device`` is where the batched simulator runs: ``"cuda"`` (default;
     raises without a Hopper card) or ``"cpu"`` when the caller asks for it.
+    A failure of the batched simulator raises (see the module docstring:
+    no circuit breaker, no degraded route).
     """
 
     def __init__(
@@ -218,8 +283,11 @@ class EvaluationEngine:
         # honoured on every route (the inline objective can only use the
         # default config).
         self._sim_defer = "sim_period" in self.objective_names and (
-            sim_backend in ("cuda", "torch") or sim_config is not None
+            sim_backend in ("auto", "cuda", "torch") or sim_config is not None
         )
+        # "auto" resolution counts, per concrete backend chosen (one count
+        # per ξ-group patch) — surfaced in ExplorationRun.meta.
+        self.sim_backend_choices: Dict[str, int] = {}
         self._decode_objs = tuple(
             _SIM_PERIOD_DEFERRED if (self._sim_defer and o.name == "sim_period") else o
             for o in self.objectives
@@ -284,10 +352,12 @@ class EvaluationEngine:
 
     def _transformed(self, xi: Tuple[int, ...]):
         if self._gt_lru_max <= 0:
-            return transformed_graph(self.space, xi, self.pipelined)
+            with obs.span("engine.transform", xi_ones=sum(xi), cached=False):
+                return transformed_graph(self.space, xi, self.pipelined)
         gt = self._gt_lru.get(xi)
         if gt is None:
-            gt = transformed_graph(self.space, xi, self.pipelined)
+            with obs.span("engine.transform", xi_ones=sum(xi), cached=False):
+                gt = transformed_graph(self.space, xi, self.pipelined)
             self._gt_lru[xi] = gt
             if len(self._gt_lru) > self._gt_lru_max:
                 self._gt_lru.popitem(last=False)
@@ -298,15 +368,17 @@ class EvaluationEngine:
     def _decode(self, genotype: Genotype) -> Individual:
         self.evaluations += 1
         t0 = time.perf_counter()
-        ind = evaluate_genotype(
-            self.space,
-            genotype,
-            decoder=self.decoder,
-            ilp_budget_s=self.ilp_budget_s,
-            pipelined=self.pipelined,
-            transformed=self._transformed(genotype.xi),
-            objectives=self._decode_objs,
-        )
+        with obs.span("engine.decode", decoder=self.decoder) as sp:
+            ind = evaluate_genotype(
+                self.space,
+                genotype,
+                decoder=self.decoder,
+                ilp_budget_s=self.ilp_budget_s,
+                pipelined=self.pipelined,
+                transformed=self._transformed(genotype.xi),
+                objectives=self._decode_objs,
+            )
+            sp.set(feasible=ind.feasible)
         self.decode_s += time.perf_counter() - t0
         return ind
 
@@ -315,8 +387,10 @@ class EvaluationEngine:
         periods — one batched call per ξ pattern (phenotypes in a ξ fiber
         share their transformed graph) on the engine's device, or
         per-phenotype through the event-driven backend when it was chosen
-        only to honour a non-default ``sim_config``.  Backend parity keeps
-        every route value-identical."""
+        (directly, by ``"auto"``, or only to honour a non-default
+        ``sim_config``).  Backend parity keeps every route value-identical.
+        A failure of a batched call, or a fault fired at
+        ``engine.sim_batch``, raises."""
         from ..sim import batch_simulate_periods, simulate_period, simulation_enabled
 
         if not self._sim_defer or not simulation_enabled():
@@ -333,16 +407,32 @@ class EvaluationEngine:
         for xi, idxs in groups.items():
             gt = self._transformed(xi)
             scheds = [inds[i].schedule for i in idxs]
-            if self.sim_backend in ("cuda", "torch"):
-                periods = batch_simulate_periods(
-                    gt, self.space.arch, scheds, self.sim_config,
-                    backend=self.sim_backend, device=self.device,
+            backend = self.sim_backend
+            if backend == "auto":
+                n_tasks = _task_count(gt)
+                backend = resolve_sim_backend(len(idxs), n_tasks, self.device)
+                self.sim_backend_choices[backend] = (
+                    self.sim_backend_choices.get(backend, 0) + 1
                 )
-            else:
-                periods = [
-                    simulate_period(gt, self.space.arch, s, self.sim_config)
-                    for s in scheds
-                ]
+                obs.event(
+                    "engine.backend_resolved",
+                    backend=backend, batch=len(idxs), n_tasks=n_tasks,
+                )
+            with obs.span(
+                "engine.sim_patch", backend=backend, batch=len(idxs),
+                xi_ones=sum(xi),
+            ):
+                if backend in ("cuda", "torch"):
+                    faults.fire("engine.sim_batch", backend=backend)
+                    periods = batch_simulate_periods(
+                        gt, self.space.arch, scheds, self.sim_config,
+                        backend=backend, device=self.device,
+                    )
+                else:
+                    periods = [
+                        simulate_period(gt, self.space.arch, s, self.sim_config)
+                        for s in scheds
+                    ]
             for i, p in zip(idxs, periods):
                 vec = list(out[i].objectives)
                 for j in sim_pos:
@@ -370,8 +460,10 @@ class EvaluationEngine:
         cached = self._cache.get(key)
         if cached is not None:
             self.hits += 1
+            obs.counter_add("engine.cache_hits")
             return self._wrap(genotype, cached)
         self.misses += 1
+        obs.counter_add("engine.cache_misses")
         ind = self._patch_sim([self._decode(genotype)])[0]
         self._store(key, ind)
         return ind
@@ -381,8 +473,8 @@ class EvaluationEngine:
 
         With ``n_workers > 0`` the unique cache misses are decoded in a
         process pool; the merge is order-deterministic, so results are
-        independent of worker scheduling.  With ``sim_backend="cuda"`` or
-        ``"torch"`` the misses' ``sim_period`` values are measured by one
+        independent of worker scheduling.  With ``sim_backend="cuda"``,
+        ``"torch"`` or ``"auto"`` the misses' ``sim_period`` values are measured by one
         batched simulation per ξ group after decoding (identical values to
         the inline event-driven route — enforced backend parity).
         """
@@ -429,6 +521,8 @@ class EvaluationEngine:
         # decodes are misses, not hits.
         self.misses += len(miss_order) + fallback
         self.hits += len(genotypes) - len(miss_order) - fallback
+        obs.counter_add("engine.cache_misses", len(miss_order) + fallback)
+        obs.counter_add("engine.cache_hits", len(genotypes) - len(miss_order) - fallback)
         return out
 
     # ------------------------------------------------------------ reporting

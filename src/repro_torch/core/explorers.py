@@ -32,6 +32,7 @@ import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence, Type, Union
 
+from .. import obs
 from .dse import Genotype, Individual, Objectives, xi_mode
 from .pareto import (
     crowding_distance,
@@ -76,7 +77,9 @@ class ExplorationRun:
     cache_hits: int = 0
     cache_misses: int = 0
     wall_s: float = 0.0
-    # Free-form provenance (serialized): e.g. the engine's sim_backend.
+    # Free-form provenance (serialized): e.g. the engine's sim_backend and
+    # device and, under sim_backend="auto", the per-ξ-group concrete
+    # backend choices.
     meta: Dict[str, Any] = field(default_factory=dict)
 
     @property
@@ -286,12 +289,30 @@ def _finalize_hypervolume(run: ExplorationRun) -> None:
         relative_hypervolume(nondominated(gen), final) if final else 0.0
         for gen in run.history
     ]
+    if run.hv_history:
+        obs.event(
+            "explorer.hypervolume",
+            explorer=run.explorer,
+            generations=len(run.hv_history),
+            relhv_final=run.hv_history[-1],
+            front=len(run.front),
+        )
 
 
-def _record_engine_meta(run: ExplorationRun, engine) -> None:
-    """Provenance: which sim backend evaluated this run, on which device."""
+def _record_engine_meta(run: ExplorationRun, engine, choices0: Dict[str, int]) -> None:
+    """Provenance: which sim backend evaluated this run, on which device.
+    Under ``sim_backend="auto"`` the per-ξ-group concrete choices made
+    *during this run* (the engine may be shared, so deltas against
+    ``choices0``)."""
     run.meta["sim_backend"] = engine.sim_backend
     run.meta["device"] = str(engine.device)
+    if engine.sim_backend == "auto":
+        delta = {
+            k: v - choices0.get(k, 0)
+            for k, v in engine.sim_backend_choices.items()
+            if v - choices0.get(k, 0) > 0
+        }
+        run.meta["sim_backend_choices"] = delta
 
 
 # ==========================================================================
@@ -364,13 +385,14 @@ class NSGA2Explorer:
         # between explores, and the run's provenance must not drift.
         run = ExplorationRun(replace(problem), self.name, self.params())
         ev0, hit0, miss0 = engine.evaluations, engine.hits, engine.misses
+        choices0 = dict(engine.sim_backend_choices)
 
         try:
             self._evolve(problem, engine, run, t0, on_generation)
             run.evaluations = engine.evaluations - ev0
             run.cache_hits = engine.hits - hit0
             run.cache_misses = engine.misses - miss0
-            _record_engine_meta(run, engine)
+            _record_engine_meta(run, engine, choices0)
         finally:
             if own_engine:
                 engine.close()
@@ -400,34 +422,43 @@ class NSGA2Explorer:
 
         _update_archive(run, pop)
         run.history.append([i.objectives for i in run.archive])
+        ev0 = engine.evaluations
 
         for gen in range(self.generations):
             if self.time_budget_s and time.monotonic() - t0 > self.time_budget_s:
                 break
-            rank, crowd = rank_crowd(pop)
-            # Create the whole brood first (RNG order identical to
-            # evaluating one-by-one — evaluation never draws from rng),
-            # then decode as one memoized, possibly parallel batch.
-            children: List[Genotype] = []
-            for _ in range(self.offspring):
-                p1, p2 = tournament(rank, crowd), tournament(rank, crowd)
-                child = (
-                    space.crossover(rng, p1.genotype, p2.genotype)
-                    if rng.random() < self.crossover_rate
-                    else p1.genotype
+            with obs.span(
+                "explorer.generation", explorer=self.name, gen=gen
+            ) as sp:
+                rank, crowd = rank_crowd(pop)
+                # Create the whole brood first (RNG order identical to
+                # evaluating one-by-one — evaluation never draws from
+                # rng), then decode as one memoized, possibly parallel
+                # batch.
+                children: List[Genotype] = []
+                for _ in range(self.offspring):
+                    p1, p2 = tournament(rank, crowd), tournament(rank, crowd)
+                    child = (
+                        space.crossover(rng, p1.genotype, p2.genotype)
+                        if rng.random() < self.crossover_rate
+                        else p1.genotype
+                    )
+                    children.append(fix(space.mutate(rng, child, xi_mode=mode)))
+                offspring = engine.evaluate_batch(children)
+                merged = pop + offspring
+                rank2, crowd2 = rank_crowd(merged)
+                # elitist μ+λ truncation by (rank, -crowding)
+                order = sorted(
+                    range(len(merged)),
+                    key=lambda i: (rank2[i], -crowd2.get(i, 0.0)),
                 )
-                children.append(fix(space.mutate(rng, child, xi_mode=mode)))
-            offspring = engine.evaluate_batch(children)
-            merged = pop + offspring
-            rank2, crowd2 = rank_crowd(merged)
-            # elitist μ+λ truncation by (rank, -crowding)
-            order = sorted(
-                range(len(merged)),
-                key=lambda i: (rank2[i], -crowd2.get(i, 0.0)),
-            )
-            pop = [merged[i] for i in order[: self.population]]
-            _update_archive(run, pop)
-            run.history.append([i.objectives for i in run.archive])
+                pop = [merged[i] for i in order[: self.population]]
+                _update_archive(run, pop)
+                run.history.append([i.objectives for i in run.archive])
+                sp.set(
+                    front=len(run.archive),
+                    evaluations=engine.evaluations - ev0,
+                )
             if on_generation:
                 run.wall_s = time.monotonic() - t0
                 on_generation(gen, run)
@@ -486,6 +517,7 @@ class RandomSearchExplorer:
         # Snapshot: see NSGA2Explorer.explore.
         run = ExplorationRun(replace(problem), self.name, self.params())
         ev0, hit0, miss0 = engine.evaluations, engine.hits, engine.misses
+        choices0 = dict(engine.sim_backend_choices)
         fix = _xi_fixer(space, mode)
 
         try:
@@ -495,12 +527,16 @@ class RandomSearchExplorer:
                 if self.time_budget_s and time.monotonic() - t0 > self.time_budget_s:
                     break
                 n = min(self.batch, remaining)
-                batch = engine.evaluate_batch(
-                    [fix(space.random(rng, mode)) for _ in range(n)]
-                )
-                remaining -= n
-                _update_archive(run, batch)
-                run.history.append([i.objectives for i in run.archive])
+                with obs.span(
+                    "explorer.generation", explorer=self.name, gen=gen, batch=n
+                ) as sp:
+                    batch = engine.evaluate_batch(
+                        [fix(space.random(rng, mode)) for _ in range(n)]
+                    )
+                    remaining -= n
+                    _update_archive(run, batch)
+                    run.history.append([i.objectives for i in run.archive])
+                    sp.set(front=len(run.archive))
                 if on_generation:
                     run.wall_s = time.monotonic() - t0
                     on_generation(gen, run)
@@ -509,7 +545,7 @@ class RandomSearchExplorer:
             run.evaluations = engine.evaluations - ev0
             run.cache_hits = engine.hits - hit0
             run.cache_misses = engine.misses - miss0
-            _record_engine_meta(run, engine)
+            _record_engine_meta(run, engine, choices0)
         finally:
             if own_engine:
                 engine.close()

@@ -29,6 +29,16 @@ and two evaluation paths selected by the ``evaluation`` parameter:
 
 Decode tables and their evaluators are LRU-cached per ξ pattern
 (``max_patterns``), and kept across ``explore`` calls on one instance.
+
+Telemetry carries the JAX package's names: ``explorer.generation`` per
+generation (both paths), ``evo.tables`` per decode-table build, and each
+device step (``kind`` ``rank_parity``, ``eval``, ``vary`` or ``rank``) as
+an ``evo.compile`` or ``evo.execute`` span.  The port traces and compiles
+nothing, so ``evo.compile`` and the ``evo.retraces`` counter mark the
+first call of a step at a new population or batch shape (the call where
+the JAX package traces), and ``evo.execute`` every later call.  With
+recording on, a step's span waits for the device so that it times the
+step's work.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.dse import Genotype, xi_mode
 from ..core.explorers import NSGA2Explorer, _update_archive, register_explorer
 from ..core.pareto import nondominated
@@ -84,6 +95,8 @@ class TorchNSGA2Explorer(NSGA2Explorer):
         # (graph, arch, pipelining, objectives, sim_iters, device, ξ pattern)
         # → relaxed evaluator holding its DecodeTables; LRU of max_patterns.
         self._evals: "OrderedDict[Tuple, Callable]" = OrderedDict()
+        # (step, shape) keys already run: their first call is evo.compile.
+        self._shapes_seen: set = set()
 
     def params(self) -> Dict[str, Any]:
         return dict(super().params(), evaluation=self.evaluation)
@@ -91,7 +104,25 @@ class TorchNSGA2Explorer(NSGA2Explorer):
     def rank_crowd(self, objs, engine):
         """The host loop's ranking core on the engine's device, bit-exact
         (see :mod:`repro_torch.evo.ranking`)."""
-        return parity_rank_crowd(objs, engine.device)
+        return self._step(("rank_parity", len(objs)), "rank_parity", engine.device,
+                          parity_rank_crowd, objs, engine.device)
+
+    def _step(self, key, kind: str, dev, fn, *args):
+        """Run one device step under the compile/execute telemetry (see the
+        module docstring); ``key`` names the step and its shape."""
+        first = key not in self._shapes_seen
+        self._shapes_seen.add(key)
+        if not obs.enabled():
+            return fn(*args)
+        n = key[-1]
+        with obs.span("evo.compile" if first else "evo.execute", kind=kind, n=n) as sp:
+            out = fn(*args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            sp.set(retraced=first)
+        if first:
+            obs.counter_add("evo.retraces")
+        return out
 
     def _evolve(self, problem, engine, run, t0, on_generation) -> None:
         run.meta["evaluation"] = self.evaluation
@@ -139,7 +170,9 @@ class TorchNSGA2Explorer(NSGA2Explorer):
             key = problem_key + (pattern,)
             fn = self._evals.get(key)
             if fn is None:
-                tab = DecodeTables(space, pattern, pipelined=pipelined)
+                with obs.span("evo.tables", pattern=str(pattern)) as sp:
+                    tab = DecodeTables(space, pattern, pipelined=pipelined)
+                    sp.set(actors=tab.A, channels=tab.C)
                 fn = make_relaxed_eval(tab, objectives, sim_iters=self.sim_iters, device=dev)
                 self._evals[key] = fn
                 while len(self._evals) > self.max_patterns:
@@ -161,12 +194,14 @@ class TorchNSGA2Explorer(NSGA2Explorer):
             nonlocal relaxed_evals
             relaxed_evals += genes.shape[0]
             if single:
-                return fixed_fn(genes)
+                return self._step((problem_key, pattern, genes.shape[0]), "eval", dev,
+                                  fixed_fn, genes)
             F = torch.empty((genes.shape[0], len(objectives)), dtype=torch.float64,
                             device=dev)
             for pat, rows in layout.xi_patterns(genes.cpu().numpy()):
                 rows_d = torch.as_tensor(rows, device=dev)
-                F[rows_d] = eval_fn(pat)(genes[rows_d])
+                F[rows_d] = self._step((problem_key, pat, len(rows)), "eval", dev,
+                                       eval_fn(pat), genes[rows_d])
             return F
 
         def rank_crowd(F: torch.Tensor):
@@ -184,10 +219,11 @@ class TorchNSGA2Explorer(NSGA2Explorer):
         def step(genes: torch.Tensor, F: torch.Tensor):
             """One generation: rank → select → vary → decode (+ kernel) →
             merged rank → elitist truncation, all on the device."""
-            child = vary(genes, F)
+            child = self._step(("vary", mu, count), "vary", dev, vary, genes, F)
             mg = torch.cat([genes, child])
             mF = torch.cat([F, evaluate(child)])
-            sel = truncation_order(*rank_crowd(mF))[:mu]
+            sel = self._step(("rank", mF.shape[0]), "rank", dev,
+                             lambda x: truncation_order(*rank_crowd(x)), mF)[:mu]
             return mg[sel], mF[sel]
 
         def fold_archive(ag, aF, genes, F):
@@ -219,9 +255,13 @@ class TorchNSGA2Explorer(NSGA2Explorer):
         for gen in range(self.generations):
             if self.time_budget_s and time.monotonic() - t0 > self.time_budget_s:
                 break
-            genes, F = step(genes, F)
-            arch_g, arch_F = fold_archive(arch_g, arch_F, genes.cpu().numpy(), F.cpu().numpy())
-            run.history.append([tuple(v) for v in arch_F])
+            with obs.span("explorer.generation", explorer=self.name, gen=gen) as sp:
+                genes, F = step(genes, F)
+                arch_g, arch_F = fold_archive(
+                    arch_g, arch_F, genes.cpu().numpy(), F.cpu().numpy()
+                )
+                run.history.append([tuple(v) for v in arch_F])
+                sp.set(front=len(arch_F))
             if on_generation:
                 run.wall_s = time.monotonic() - t0
                 on_generation(gen, run)

@@ -18,6 +18,11 @@ launches the kernel or raises — there is no fallback.  :data:`launches`
 counts kernel launches.  :func:`launch_plan` is the launch's shape (warps,
 actors per thread, shared memory and its layout), worked out on the host
 from the table sizes alone.
+
+The build is a ``sim.cuda_build`` span and a ``sim.cuda_builds`` count
+(:mod:`repro_torch.obs`), where the JAX package records
+``sim.pallas_build`` / ``sim.pallas_builds``: once per process, with
+``compiled`` false when ``nvcc``'s library was already on disk.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..sim.batched import SimTables, simulate_plain
 from ._build import CudaLibrary
 
@@ -49,10 +55,20 @@ def _bind(lib) -> None:
 
 
 LIBRARY = CudaLibrary("sim_step", _bind)
-# build() compiles (once) and loads the library; build_info holds its
-# path, build seconds and nvcc's -Xptxas -v report.
-build = LIBRARY.load
+# build_info holds, after build(), the library's path, build seconds and
+# nvcc's -Xptxas -v report.
 build_info = LIBRARY.info
+
+
+def build():
+    """Compile (once) and load the library."""
+    if LIBRARY._lib is not None:
+        return LIBRARY._lib
+    with obs.span("sim.cuda_build") as sp:
+        lib = LIBRARY.load()
+        sp.set(compiled=LIBRARY.info["seconds"] > 0, seconds=LIBRARY.info["seconds"])
+    obs.counter_add("sim.cuda_builds", compiled=LIBRARY.info["seconds"] > 0)
+    return lib
 
 # Kernel launches made by sim_step (plain-version calls are not counted).
 launches = 0

@@ -31,6 +31,16 @@ phenotypes that share one (transformed graph, architecture) pair:
 ``backend="cuda"`` runs the kernel (on a CPU tensor its wrapper uses this
 module's plain program); ``backend="torch"`` runs the plain program on the
 chosen device.
+
+Telemetry carries the JAX package's names: a ``sim.compile`` span per
+lowering of a batch into device tables and a ``sim.execute`` span per
+simulator call (both with ``backend``), the ``sim.cache_builds`` counter,
+``sim.int32_fallbacks`` (``phase`` ``predicted`` or ``wrapped``) and the
+``sim.horizon_double`` event.  The port compiles no program per structure:
+it lowers the tables on every call and keeps no cache of them, so
+``sim.compile`` times that lowering and ``sim.cache_builds`` counts every
+table build.  ``sim.execute`` ends after the results are copied to the
+host, so it holds the device's work.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.architecture import ArchitectureGraph
 from ..core.graph import ApplicationGraph
 from ..core.schedule import Schedule
@@ -600,18 +611,22 @@ def _run_batch(
     backend: str,
     device: torch.device,
 ):
-    static, batched = _lower_batch(progs)
-    tab = compact_tables(static, batched, device)
     # The fire buffer is sized to the power-of-two bucket of the requested
     # firing count, not max_iterations.
     k_max = min(_bucket(max(2, total_iters)), cfg.max_iterations)
-    if backend == "cuda":
-        from ..kernels.sim_step import sim_step
+    with obs.span("sim.compile", backend=backend, k_max=int(k_max)):
+        static, batched = _lower_batch(progs)
+        tab = compact_tables(static, batched, device)
+    obs.counter_add("sim.cache_builds", backend=backend)
+    with obs.span("sim.execute", backend=backend, B=len(progs), k_max=int(k_max)):
+        if backend == "cuda":
+            from ..kernels.sim_step import sim_step
 
-        fire, dead, horizon = sim_step(tab, total_iters, k_max, cfg.mrb_ports)
-    else:
-        fire, dead, horizon = simulate_plain(tab, total_iters, k_max, cfg.mrb_ports)
-    return fire.cpu().numpy(), dead.cpu().numpy(), horizon.cpu().numpy()
+            fire, dead, horizon = sim_step(tab, total_iters, k_max, cfg.mrb_ports)
+        else:
+            fire, dead, horizon = simulate_plain(tab, total_iters, k_max, cfg.mrb_ports)
+        out = fire.cpu().numpy(), dead.cpu().numpy(), horizon.cpu().numpy()
+    return out
 
 
 def batch_simulate(
@@ -649,6 +664,7 @@ def batch_simulate(
             from .events import simulate as ev_simulate
 
             int32_fallbacks += 1
+            obs.counter_add("sim.int32_fallbacks", phase="predicted")
             out[i] = ev_simulate(g, arch, pr.schedule, _no_trace(cfg))
 
     remaining = [i for i, r in enumerate(out) if r is None]
@@ -670,6 +686,7 @@ def batch_simulate(
                 from .events import simulate as ev_simulate
 
                 int32_fallbacks += 1
+                obs.counter_add("sim.int32_fallbacks", phase="wrapped")
                 out[i] = ev_simulate(g, arch, progs[i].schedule, _no_trace(cfg))
                 continue
             ft = {
@@ -698,6 +715,11 @@ def batch_simulate(
                 )
             else:
                 still.append(i)
+        if still:
+            obs.event(
+                "sim.horizon_double", pending=len(still),
+                next_iters=min(cfg.max_iterations, iters * 2),
+            )
         remaining = still
         iters = min(cfg.max_iterations, iters * 2)
     return [r for r in out if r is not None]

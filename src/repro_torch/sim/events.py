@@ -19,6 +19,7 @@ import os
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from .. import obs
 from ..core.architecture import ArchitectureGraph
 from ..core.graph import ApplicationGraph
 from ..core.schedule import Schedule
@@ -390,15 +391,21 @@ def simulate(
     cannot sustain the schedule's capacities) yields ``period == inf``.
     """
     cfg = config or SimConfig()
-    prog = lower_phenotype(g, arch, sched)
-    iters = max(2, cfg.iterations)
-    while True:
-        res = _run(prog, iters, cfg)
-        if res.deadlocked or res.converged or iters >= cfg.max_iterations:
-            if not res.converged and not res.deadlocked:
-                res.period = fallback_period(res.fire_times)
-            return res
-        iters = min(cfg.max_iterations, iters * 2)
+    with obs.span("sim.events", actors=len(g.actors)) as sp:
+        prog = lower_phenotype(g, arch, sched)
+        iters = max(2, cfg.iterations)
+        while True:
+            res = _run(prog, iters, cfg)
+            if res.deadlocked or res.converged or iters >= cfg.max_iterations:
+                if not res.converged and not res.deadlocked:
+                    res.period = fallback_period(res.fire_times)
+                sp.set(
+                    iterations=iters,
+                    converged=res.converged,
+                    deadlocked=res.deadlocked,
+                )
+                return res
+            iters = min(cfg.max_iterations, iters * 2)
 
 
 def simulate_period(

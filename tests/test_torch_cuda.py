@@ -495,3 +495,55 @@ def test_relaxed_mode_on_the_card_repeats_and_launches_per_generation(device):
     assert counts == [1 + 3, 1 + 3]     # the initial population, then one per generation
     assert a.history == b.history and a.front == b.front
     assert a.meta["relaxed_evaluations"] == 16 + 3 * 8
+
+
+def _two_cell_sobel_campaign(path):
+    """Two Sobel cells (Reference and MRB_Explore) with ``sim_period`` on
+    the default engine backend (``cuda``)."""
+    from repro_torch.core import Campaign, paper_architecture, sobel
+
+    camp = Campaign(
+        name="card-two-cells",
+        problems=[{"label": "Sobel", "graph": sobel().to_dict(),
+                   "arch": paper_architecture().to_dict(),
+                   "objectives": ["sim_period", "memory", "core_cost"]}],
+        axes={"strategy": ["Reference", "MRB_Explore"]},
+        explorer_params={"population": 12, "offspring": 6, "generations": 2, "seed": 0},
+    )
+    path.write_text(camp.dumps())
+    return camp
+
+
+def test_campaign_cli_on_the_card_matches_the_cpu(device, tmp_path, capsys):
+    """``python -m repro_torch campaign run`` on the card: the kernel runs
+    and both cells' fronts equal a ``--device cpu`` run of the same spec
+    (same store name: the device is not part of the campaign's identity)."""
+    from repro_torch.cli import main
+    from repro_torch.core import RunStore
+    from repro_torch.kernels import sim_step as kmod
+
+    spec = tmp_path / "spec.json"
+    camp = _two_cell_sobel_campaign(spec)
+    before = kmod.launches
+    assert main(["campaign", "run", str(spec), "--root", str(tmp_path / "card")]) == 0
+    assert kmod.launches > before
+    assert main(["campaign", "run", str(spec), "--root", str(tmp_path / "cpu"),
+                 "--device", "cpu"]) == 0
+    capsys.readouterr()
+    card = RunStore(str(tmp_path / "card" / camp.campaign_id())).read_report()
+    cpu = RunStore(str(tmp_path / "cpu" / camp.campaign_id())).read_report()
+    assert card["n_completed"] == cpu["n_completed"] == 2
+    for tag, row in card["cells"].items():
+        assert row["front"] == cpu["cells"][tag]["front"], tag
+        assert row["meta"]["device"].startswith("cuda")
+        assert cpu["cells"][tag]["meta"]["device"] == "cpu"
+
+
+def test_sim_parity_cli_on_the_card(device, capsys):
+    from repro_torch.cli import main
+    from repro_torch.kernels import sim_step as kmod
+
+    before = kmod.launches
+    assert main(["sim", "parity", "--batch", "16", "--device", "cuda"]) == 0
+    assert "periods identical across backends: OK" in capsys.readouterr().out
+    assert kmod.launches > before

@@ -99,3 +99,59 @@ def test_default_device_is_the_card():
     with pytest.raises(KeyError, match="unknown decoder"):
         port.ExplorationProblem(graph=port.sobel(), arch=port.paper_architecture(),
                                 decoder="no_such_decoder")
+
+
+# ------------------------------------------------------- sim_backend="auto"
+@pytest.mark.parametrize("device,want", [
+    ("cpu", "torch"), (torch.device("cpu"), "torch"),
+    ("cuda", "cuda"), (torch.device("cuda", 0), "cuda"),
+])
+def test_auto_backend_resolution_regimes(device, want):
+    """The regimes of ``resolve_sim_backend``: groups below
+    ``AUTO_MIN_BATCH`` to the event simulator, the rest to the kernel on a
+    CUDA engine and to the plain program on a CPU one; the task count
+    chooses nothing."""
+    for n_tasks in (1, 10_000):
+        for batch in range(port.AUTO_MIN_BATCH):
+            assert port.resolve_sim_backend(batch, n_tasks, device) == "events"
+        for batch in (port.AUTO_MIN_BATCH, port.AUTO_MIN_BATCH + 1, 256):
+            assert port.resolve_sim_backend(batch, n_tasks, device) == want
+
+
+def test_auto_backend_engine_matches_reference_and_records_choices():
+    """``auto`` on a CPU engine: the reference's front (its inline events),
+    the choices in ``run.meta`` as a per-run delta of the engine's counts,
+    and the meta through the run JSON."""
+    rp, pp = _problems("MRB_Always")
+    explorer = dict(population=10, offspring=5, generations=1, seed=7)
+    with rp.make_engine(sim_backend=None) as eng:
+        theirs = ref.NSGA2Explorer(**explorer).explore(rp, engine=eng)
+    with pp.make_engine(sim_backend="auto", device="cpu") as eng:
+        mine = port.NSGA2Explorer(**explorer).explore(pp, engine=eng)
+        again = port.NSGA2Explorer(**explorer).explore(pp, engine=eng)
+        total = dict(eng.sim_backend_choices)
+    _assert_same_run(mine, theirs)
+    assert mine.meta["sim_backend"] == "auto" and mine.meta["device"] == "cpu"
+    # The 10 initial phenotypes, one ξ group, go to the plain program.
+    assert mine.meta["sim_backend_choices"]["torch"] >= 1
+    assert set(mine.meta["sim_backend_choices"]) <= {"events", "torch"}
+    merged = dict(mine.meta["sim_backend_choices"])
+    for k, v in again.meta.get("sim_backend_choices", {}).items():
+        merged[k] = merged.get(k, 0) + v
+    assert merged == total
+    assert port.ExplorationRun.from_json(mine.to_json()).meta == mine.meta
+
+
+def test_auto_backend_singleton_groups_follow_the_threshold():
+    """Single-genotype evaluations are ξ groups of one: they go where
+    ``AUTO_MIN_BATCH`` sends a group of one."""
+    want = "events" if port.AUTO_MIN_BATCH > 1 else "torch"
+    _, pp = _problems("MRB_Always")
+    space = pp.space()
+    import random
+
+    rng = random.Random(0)
+    with pp.make_engine(sim_backend="auto", device="cpu") as eng:
+        for _ in range(6):
+            eng.evaluate(space.force_xi(space.random(rng), 1))
+        assert eng.sim_backend_choices == {want: 6}
