@@ -124,6 +124,31 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     4, 8, 16 through the event simulator and through the kernel, at
     Sobel and Multicamera, and the least B at which the kernel is no
     slower (``AUTO_MIN_BATCH`` is set from it).
+13. the campaign service, chaos sweeps and the planning layer on the card:
+    (a) ``python -m repro_torch campaign serve --device cuda --workers 2``
+    in a subprocess on 127.0.0.1, phase 12's campaign cut to Sobel and
+    Sobel4 (8 cells) submitted as tenants ``alice`` (``--no-wait``) and
+    ``bob`` through ``repro_torch.cli.main``: both done, one success-log
+    line per cell hash, both manifests byte-identical to the one a local
+    ``CampaignRunner`` writes, every served artifact (wall time dropped)
+    equal to phase 12's artifact of the same hash, ``/metrics`` (JSON and
+    Prometheus text) timing the cells under ``cuda``, no claim left once
+    the server stops on SIGINT; the server's start, each tenant's, each
+    cell's and the pool's wall times; (b) ``make_server(workers=0)`` in
+    this process with one Sobel MRB_Explore cell on a fresh store, its
+    ``sim_step`` launches (> 0) and their CUDA-event ms, its artifact equal
+    to phase 12's; (c) a spawned worker's imports and the chaos spec's
+    unit on the card twice (the first pays the CUDA set-up), within the
+    chaos harness's 6 s unit deadline and 3 s heartbeat timeout, then
+    ``python -m repro_torch chaos run --device cuda --workers 2 --seed 0
+    --plans CHAOS_PLANS``: every plan converged, every site class fired,
+    each plan's faulty and heal seconds and worker respawns; (d)
+    ``plan_mapping`` on the card (MusicGen-medium 8 stages, Zamba2-7B 8,
+    Mixtral-8x7B 4; seq 4096, batch 256; 15 generations, population 16,
+    seed 2, no wall budget), every plan's schedule through the ``"cuda"``
+    backend equal to the event simulator, launches > 0,
+    ``int32_fallbacks`` printed, the MRB trade-off held where both
+    choices survive.
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1859,6 +1884,8 @@ def phase_campaign(device):
         assert store.read_report()["cells"][victim.tag]["front"] == \
             report["cells"][victim.tag]["front"]
         log(f"phase campaign: resume re-executed only {victim.tag}; manifest byte-identical")
+        # phase 13 holds the served artifacts against these
+        out["artifacts"] = {c.spec_hash(): store.load_cell(c.spec_hash()) for c in cells}
 
         # (d) the spawn pool on the card, in a subprocess
         sobel_spec = campaign_spec(name="paper-campaign-sobel", apps=("Sobel",))
@@ -1927,6 +1954,395 @@ def phase_campaign(device):
     return out
 
 
+# ------------------- the campaign service, chaos sweeps and the planning layer
+# Phase 13 (a): phase 12's campaign cut to Sobel and Sobel4 (8 cells), served
+# to two tenants by `campaign serve --workers 2` in a subprocess.
+SERVED_APPS = ("Sobel", "Sobel4")
+SERVED_TENANTS = ("alice", "bob")
+# (c): `chaos run` plans on the card; the JAX package's default is 20, cut
+# so that the sweep takes about 90 s (each injected crash respawns a
+# worker, which pays an interpreter and a torch import).
+CHAOS_PLANS = 2
+# (d): benchmarks/dataflow_plans.py's settings, without its 60 s wall budget
+# (the fronts would depend on the clock).
+DATAFLOW_MODELS = (("musicgen-medium", 8), ("zamba2-7b", 8), ("mixtral-8x7b", 4))
+DATAFLOW_SHAPE = dict(seq_len=4096, batch=256)
+DATAFLOW_PARAMS = dict(generations=15, population=16, seed=2, time_budget_s=None)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def strip_wall(art):
+    """A cell artifact without its wall time (the only field two runs of
+    one cell on one device may differ in)."""
+    art = json.loads(json.dumps(art))
+    art["run"].pop("wall_s", None)
+    return art
+
+
+def timed_sim_step(events):
+    """Wrap ``kernels.sim_step.sim_step`` so each launch records a pair of
+    CUDA events; returns the original to restore."""
+    import torch
+    from repro_torch.kernels import sim_step as kmod
+
+    launch = kmod.sim_step
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return res
+
+    kmod.sim_step = timed
+    return launch
+
+
+def served_campaign(tmp, local_artifacts):
+    """Phase 13 (a): `campaign serve --device cuda --workers 2` in a
+    subprocess, the spec submitted as two tenants through the CLI."""
+    import signal
+
+    from repro_torch.core import Campaign, CampaignRunner, RunStore
+    from repro_torch.service import GlobalStore, ServiceClient, ServiceError
+
+    spec = campaign_spec(name="paper-campaign-served", apps=SERVED_APPS, backends=("cuda",))
+    spec_path = write_spec(os.path.join(tmp, "served.json"), spec)
+    camp = Campaign.from_json(spec)
+    cells = camp.expand()
+    hashes = sorted(c.spec_hash() for c in cells)
+    root = os.path.join(tmp, "service")
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log_path = os.path.join(tmp, "serve.log")
+    out = {"cells": len(cells)}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as server_log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch", "campaign", "serve", "--device", "cuda",
+             "--workers", "2", "--service-root", root, "--host", "127.0.0.1",
+             "--port", str(port)],
+            env=env, stdout=server_log, stderr=subprocess.STDOUT,
+        )
+        try:
+            client = ServiceClient(url, retries=0)
+            while True:
+                assert proc.poll() is None, f"campaign serve exited {proc.returncode}"
+                try:
+                    client.healthz()
+                    break
+                except ServiceError:
+                    assert time.perf_counter() - t0 < 120, "campaign serve did not answer"
+                    time.sleep(0.2)
+            out["server_start_s"] = time.perf_counter() - t0
+            client = ServiceClient(url)
+            t_sub = time.perf_counter()
+            rc, text = cli_out(["campaign", "submit", spec_path, "--url", url,
+                                "--tenant", SERVED_TENANTS[0], "--no-wait"])
+            assert rc == 0, text
+            sids = [text.split("submitted ")[1].split(":")[0]]
+            rc, text = cli_out(["campaign", "submit", spec_path, "--url", url,
+                                "--tenant", SERVED_TENANTS[1]])
+            out[f"{SERVED_TENANTS[1]}_s"] = time.perf_counter() - t_sub
+            assert rc == 0, text
+            for line in text.splitlines():
+                log("phase service: cli |", line)
+            sids.append(text.split("submitted ")[1].split(":")[0])
+            status = client.wait(sids[0], timeout_s=900)
+            out[f"{SERVED_TENANTS[0]}_s"] = time.perf_counter() - t_sub
+            statuses = [status, client.status(sids[1])]
+            out["pool_s"] = time.perf_counter() - t_sub
+            for sid, st in zip(sids, statuses):
+                assert st["done"], f"{sid} not done: {st.get('scheduler')}"
+                assert st["report"]["n_completed"] == len(cells)
+            walls = {}
+            for sid in sids:
+                for e in client.events(sid):
+                    if e["type"] == "cell_done":
+                        walls[e["tag"]] = dict(wall_s=e["wall_s"], tenant=e["tenant"])
+            metrics = client.metrics()
+            prom = client.metrics_text()
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise AssertionError("campaign serve did not stop on SIGINT")
+    with open(log_path) as f:
+        for line in f.read().splitlines()[:4]:
+            log("phase service: serve |", line)
+    assert proc.returncode == 0, f"campaign serve exited {proc.returncode}"
+    gs = GlobalStore(root)
+    counts = {}
+    for rec in gs.cells.success_log():
+        counts[rec["spec"]] = counts.get(rec["spec"], 0) + 1
+    assert counts == {h: 1 for h in hashes}, f"success log {counts}"
+    claims = os.listdir(os.path.join(root, "global", "claims"))
+    assert claims == [], f"claims left: {claims}"
+    # the manifest a local CampaignRunner writes for the same spec (every
+    # cell already stored, so it executes none)
+    local = RunStore(os.path.join(tmp, "local-served", camp.campaign_id()))
+    for h in hashes:
+        local.save_cell(h, gs.cells.load_cell(h))
+    ran = CampaignRunner(camp, store=local, engine_overrides={"device": "cuda"}).run()
+    assert not ran.executed
+    with open(os.path.join(local.root, "manifest.json"), "rb") as f:
+        manifest = f.read()
+    for sid in sids:
+        with open(os.path.join(gs.view(sid).root, "manifest.json"), "rb") as f:
+            assert f.read() == manifest, f"{sid}: manifest differs from a local run's"
+    for h in hashes:
+        assert strip_wall(gs.cells.load_cell(h)) == strip_wall(local_artifacts[h]), \
+            f"served artifact {h[:12]} differs from phase 12's"
+    timing = metrics["backend_timing"]
+    assert set(timing) == {"cuda"} and timing["cuda"]["cells"] == len(cells), timing
+    assert metrics["counters"]["cells_executed"] == len(cells)
+    assert metrics["counters"]["cells_deduped"] == len(cells)
+    assert f'repro_backend_cells_total{{backend="cuda"}} {len(cells)}' in prom
+    for tag in sorted(walls):
+        log("phase service: cell", tag, json.dumps(walls[tag]))
+    out.update(sids=sids, cell_wall_s=sum(w["wall_s"] for w in walls.values()),
+               backend_timing=timing, worker_restarts=metrics["counters"]["worker_restarts"],
+               dedup_hit_rate=metrics["dedup_hit_rate"])
+    return out
+
+
+def served_inline(tmp, local_artifacts):
+    """Phase 13 (b): `make_server(workers=0)` in this process, one Sobel
+    MRB_Explore cell on a fresh store, its `sim_step` launches counted."""
+    import threading
+
+    import torch
+    from repro_torch.core import Campaign
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.service import ServiceClient, make_server
+
+    spec = campaign_spec(name="paper-campaign-inline", apps=("Sobel",),
+                         strategies=("MRB_Explore",), explorers=("nsga2",), backends=("cuda",))
+    (cell,) = Campaign.from_json(spec).expand()
+    server, service = make_server(os.path.join(tmp, "inline"), workers=0, device="cuda")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    host, port = server.server_address[:2]
+    events = []
+    launch = timed_sim_step(events)
+    try:
+        client = ServiceClient(f"http://{host}:{port}")
+        sid = client.submit(spec, tenant="inline")["submission_id"]
+        t0 = time.perf_counter()
+        reset_counts()
+        service.scheduler.drain()
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        status = client.status(sid)
+    finally:
+        kmod.sim_step = launch
+        server.shutdown()
+        server.server_close()
+        service.close()
+    torch.cuda.synchronize()
+    assert status["done"], status.get("scheduler")
+    assert counts["sim_step"] > 0, "the inline served cell launched no sim_step kernel"
+    assert counts["sim_step"] == len(events)
+    art = service.store.cells.load_cell(cell.spec_hash())
+    assert strip_wall(art) == strip_wall(local_artifacts[cell.spec_hash()]), \
+        "the inline served artifact differs from phase 12's"
+    assert os.listdir(os.path.join(tmp, "inline", "global", "claims")) == []
+    return dict(cell=cell.tag, wall_s=wall, launches=counts["sim_step"],
+                kernel_ms=sum(s.elapsed_time(e) for s, e in events), counts=counts)
+
+
+def worker_start_probe(spec_path, store_root):
+    """Run in a fresh ``spawn`` process: the imports a scheduler worker
+    makes before it reports ready, then the chaos spec's one unit on the
+    card twice (fresh stores; the first pays the process's CUDA set-up),
+    each timed, with the longest gap of a 0.1 s heartbeat thread over the
+    units (the chaos harness replaces a worker after a 3 s gap and cancels
+    a unit after 6 s)."""
+    import threading
+
+    t0 = time.perf_counter()
+    from repro_torch.core.campaign import Campaign
+    from repro_torch.core.runstore import RunStore
+    from repro_torch.service import scheduler
+
+    out = {"import_s": time.perf_counter() - t0}
+    gaps, stop = [], threading.Event()
+
+    def beat():
+        last = time.perf_counter()
+        while not stop.wait(0.1):
+            now = time.perf_counter()
+            gaps.append(now - last)
+            last = now
+
+    threading.Thread(target=beat, daemon=True).start()
+    with open(spec_path) as f:
+        cells = Campaign.from_json(json.load(f)).expand()
+    for key in ("first_unit_s", "second_unit_s"):
+        t0 = time.perf_counter()
+        scheduler._execute_unit(cells, RunStore(os.path.join(store_root, key)), owner="probe",
+                                engine_overrides={"device": "cuda"})
+        out[key] = time.perf_counter() - t0
+    stop.set()
+    out.update(cells=len(cells), max_heartbeat_gap_s=max(gaps))
+    return out
+
+
+def chaos_sweep(tmp):
+    """Phase 13 (c): a spawned worker's start on the card (the chaos
+    timings hold only if a healthy first unit stays well inside them),
+    then `python -m repro_torch chaos run --device cuda` over the port's
+    smoke spec in a subprocess."""
+    import multiprocessing
+
+    from repro_torch.faults import DEFAULT_SPEC
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        start = pool.apply(worker_start_probe, (DEFAULT_SPEC, os.path.join(tmp, "probe")))
+    log("phase service: worker start", json.dumps(start))
+    assert start["first_unit_s"] < 6.0 and start["max_heartbeat_gap_s"] < 3.0, start
+    out_root = os.path.join(tmp, "chaos")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "chaos", "run", "--device", "cuda",
+         "--workers", "2", "--seed", "0", "--plans", str(CHAOS_PLANS), "--out", out_root],
+        env=env, capture_output=True, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log("phase service: chaos |", line)
+    assert proc.returncode == 0, f"chaos run exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    with open(os.path.join(out_root, "chaos_report.json")) as f:
+        report = json.load(f)
+    assert report["ok"] and report["device"] == "cuda", report
+    assert all(report["site_class_coverage"].values()), report["site_class_coverage"]
+    rows = [dict(plan=r["plan"], fired=r["fired_sites"], faulty_s=r["faulty_s"],
+                 heal_s=r["heal_s"], worker_restarts=r["worker_restarts"])
+            for r in report["results"]]
+    for row in rows:
+        log("phase service: chaos plan", json.dumps(row))
+    return dict(plans=len(rows), wall_s=wall, report_wall_s=report["wall_s"], rows=rows,
+                worker_restarts=sum(sum(r["worker_restarts"].values()) for r in rows),
+                worker_start=start)
+
+
+def dataflow_plans(device):
+    """Phase 13 (d): `plan_mapping` on the card at dataflow_plans.py's
+    settings; every plan's schedule through the engine's "cuda" backend
+    equal to the event simulator."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import multicast_actors
+    from repro_torch.dataflow import extract_application_graph, plan_mapping, tpu_pod_architecture
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.dataflow.extract import ExtractOptions
+    from repro_torch.sim import SimConfig, batch_simulate_periods, batched, simulate_period
+
+    arch = tpu_pod_architecture()
+    cfg_sim = SimConfig(trace=False)
+    rows = []
+    events = []
+    reset_counts()
+    batched.int32_fallbacks = 0
+    launch = timed_sim_step(events)
+    try:
+        for name, stages in DATAFLOW_MODELS:
+            cfg = get_config(name).model
+            opts = ExtractOptions(n_stages=stages)
+            g = extract_application_graph(cfg, DATAFLOW_SHAPE["seq_len"], DATAFLOW_SHAPE["batch"],
+                                          opts)
+            t0 = time.perf_counter()
+            plans = plan_mapping(cfg, DATAFLOW_SHAPE["seq_len"], DATAFLOW_SHAPE["batch"],
+                                 opts=opts, device=device, **DATAFLOW_PARAMS)
+            plan_s = time.perf_counter() - t0
+            assert plans, f"{name}: no feasible plan"
+            n0 = len(events)
+            t0 = time.perf_counter()
+            groups = {}
+            for p in plans:
+                groups.setdefault(id(p.graph), []).append(p)
+            max_period = 0.0
+            for group in groups.values():
+                gt = group[0].graph
+                scheds = [p.schedule for p in group]
+                kernel = batch_simulate_periods(gt, arch, scheds, cfg_sim, backend="cuda",
+                                                device=device)
+                ev = [simulate_period(gt, arch, s, cfg_sim) for s in scheds]
+                assert kernel == ev, f"{name}: kernel and event periods differ"
+                max_period = max(max_period, *ev)
+            check_s = time.perf_counter() - t0
+            with_mrb = [p for p in plans if p.mrb_choices and all(p.mrb_choices.values())]
+            without = [p for p in plans if not any(p.mrb_choices.values())]
+            if with_mrb and without:
+                assert min(p.buffer_bytes for p in with_mrb) < min(p.buffer_bytes for p in without)
+            row = dict(model=name, stages=stages, actors=len(g.actors), channels=len(g.channels),
+                       multicast=len(multicast_actors(g)),
+                       pareto=len(plans), plan_s=plan_s, check_s=check_s,
+                       launches=len(events) - n0, max_sim_period=max_period,
+                       both_mrb_choices=bool(with_mrb and without),
+                       fastest=plans[0].summary(),
+                       smallest=min(plans, key=lambda p: p.buffer_bytes).summary())
+            rows.append(row)
+            log("phase service: dataflow", json.dumps(row))
+    finally:
+        kmod.sim_step = launch
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts["sim_step"] > 0 and counts["sim_step"] == len(events)
+    return dict(rows=rows, launches=counts["sim_step"], int32_fallbacks=batched.int32_fallbacks,
+                kernel_ms=sum(s.elapsed_time(e) for s, e in events))
+
+
+def phase_service(device, local_artifacts):
+    """Phase 13: the campaign service over HTTP, chaos sweeps and the
+    planning layer on the card: (a) a served campaign through the CLI;
+    (b) an inline served pass that counts `sim_step` launches; (c) `chaos
+    run`; (d) `plan_mapping` with every plan's schedule held kernel =
+    events."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-service-")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["served"] = served_campaign(tmp, local_artifacts)
+        out["served"]["seconds"] = time.perf_counter() - t0
+        log("phase service: served", json.dumps(out["served"]))
+        t0 = time.perf_counter()
+        out["inline"] = served_inline(tmp, local_artifacts)
+        out["inline"]["seconds"] = time.perf_counter() - t0
+        log("phase service: inline", json.dumps(out["inline"]))
+        t0 = time.perf_counter()
+        out["chaos"] = chaos_sweep(tmp)
+        out["chaos"]["seconds"] = time.perf_counter() - t0
+        log("phase service: chaos", json.dumps({k: v for k, v in out["chaos"].items()
+                                                if k != "rows"}))
+        t0 = time.perf_counter()
+        out["dataflow"] = dataflow_plans(device)
+        out["dataflow"]["seconds"] = time.perf_counter() - t0
+        log("phase service: dataflow", json.dumps({k: v for k, v in out["dataflow"].items()
+                                                   if k != "rows"}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase service: {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -1977,6 +2393,7 @@ def main() -> int:
     evo = phase_device_explorer(device, main["front_points"])
     exact = phase_exact_and_scenarios(device)
     campaign = phase_campaign(device)
+    service = phase_service(device, campaign.pop("artifacts"))
 
     served = attn_rows[0]
     qwen3_long = next(r for r in attn_rows if r["shape"] == "qwen3_long")
@@ -2000,7 +2417,10 @@ def main() -> int:
              exact_scenarios_max_warps=exact["max_warps"],
              campaign_launches=campaign["run"]["launches"],
              campaign_kernel_ms=campaign["run"]["kernel_ms"],
-             auto_crossover_batch=campaign["crossover"]["crossing"]),
+             auto_crossover_batch=campaign["crossover"]["crossing"],
+             served_launches=service["inline"]["launches"],
+             served_kernel_ms=service["inline"]["kernel_ms"],
+             dataflow_launches=service["dataflow"]["launches"]),
         dict(name="mrb_append", route="cuda", source="src/repro_torch/csrc/mrb_ring.cu",
              replaces="src/repro/kernels/mrb_ring.py:35",
              launches=serving["launches"]["mrb_append"], max_abs_err=append_err,

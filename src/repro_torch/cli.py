@@ -7,14 +7,14 @@ JAX package's subcommands, options and output.
     python -m repro_torch campaign report ID_OR_DIR [--root DIR] [--verify]
     python -m repro_torch campaign list [--root DIR]
     python -m repro_torch campaign serve [--host H] [--port P] [--workers N]
-                                   [--service-root DIR]
+                                   [--service-root DIR] [--device D]
     python -m repro_torch campaign submit SPEC.json --url http://H:P
                                    [--tenant T] [--priority N]
                                    [--stream] [--no-wait]
     python -m repro_torch campaign status SUBMISSION_ID --url http://H:P
     python -m repro_torch campaign metrics --url http://H:P
     python -m repro_torch chaos run [--spec SPEC.json] [--plans N] [--seed S]
-                              [--out DIR] [--workers N]
+                              [--out DIR] [--workers N] [--device D]
     python -m repro_torch problem validate SPEC.json
     python -m repro_torch problem explore SPEC.json [--explorer nsga2|torch_nsga2|random_search]
                                     [--strategy Reference|MRB_Always|MRB_Explore]
@@ -32,11 +32,11 @@ JAX package's subcommands, options and output.
 ``--device`` (``cuda``, the default, or ``cpu``) is where every engine a
 subcommand builds runs; it reaches a campaign's engines as an
 ``engine_overrides`` entry, outside the cells, their hashes and the
-manifest, so one spec names one store on either device.
-
-``campaign serve``, ``submit``, ``status``, ``metrics`` and ``chaos run``
-keep the JAX package's options but are not ported yet: each exits 2 with
-a one-line error.
+manifest, so one spec names one store on either device.  On ``campaign
+serve`` and ``chaos run`` it is the server's, for every cell it runs; a
+client submitting to a service cannot choose it.  ``chaos run``'s
+default spec is the JAX package's CI smoke spec with ``torch_nsga2`` for
+``jax_nsga2`` (``repro_torch/specs/campaign_smoke.json``).
 
 Campaign specs are :class:`repro_torch.core.campaign.Campaign` JSON; the store
 layout under ``--root`` (default ``runs/campaigns/``) is documented in
@@ -180,15 +180,98 @@ def _cmd_campaign_list(args) -> int:
     return 0
 
 
-# ------------------------------------------------- not ported (next slice)
-def _unported(what: str):
-    def fn(args) -> int:
-        raise RuntimeError(
-            f"{what} is not ported to repro_torch yet "
-            f"(ROADMAP §1 item 8: the HTTP service and chaos sweeps)"
-        )
+# ------------------------------------------------------------------ service
+def _cmd_campaign_serve(args) -> int:
+    from .service import DEFAULT_SERVICE_ROOT, serve
+    from .service.scheduler import SchedulerConfig
 
-    return fn
+    serve(
+        args.service_root or DEFAULT_SERVICE_ROOT,
+        host=args.host,
+        port=args.port,
+        workers=args.workers,
+        config=SchedulerConfig(
+            max_retries=args.max_retries,
+            unit_deadline_s=args.unit_deadline,
+        ),
+        queue_high_water=args.queue_high_water,
+        device=args.device,
+    )
+    return 0
+
+
+def _cmd_campaign_submit(args) -> int:
+    from .service import ServiceClient
+
+    campaign = Campaign.load(args.spec)
+    client = ServiceClient(
+        args.url,
+        timeout_s=args.timeout if args.timeout is not None else 30.0,
+    )
+    sub = client.submit(
+        campaign.to_json(), tenant=args.tenant, priority=args.priority
+    )
+    print(
+        f"submitted {sub['submission_id']}: {sub['n_cells']} cells "
+        f"({sub['n_pending']} pending, {sub['n_resumed']} already stored)"
+    )
+    if args.stream:
+        for event in client.events(sub["submission_id"]):
+            bits = [event["type"]]
+            if event.get("tag"):
+                bits.append(event["tag"])
+            if event.get("wall_s") is not None:
+                bits.append(f"{event['wall_s']:.2f}s")
+            print("  " + " ".join(str(b) for b in bits), flush=True)
+    if args.wait or args.stream:
+        status = client.wait(sub["submission_id"], timeout_s=args.timeout)
+        report = status["report"]
+        sched = status.get("scheduler") or {}
+        if sched.get("errors"):
+            print(f"FAILED: {sched['errors'][0]}", file=sys.stderr)
+            return 1
+        print(f"done: {report['n_completed']}/{report['n_cells']} cells")
+        _print_report_summary(report)
+        return 0
+    return 0
+
+
+def _cmd_campaign_status(args) -> int:
+    from .service import ServiceClient
+
+    status = ServiceClient(args.url).status(args.id)
+    report = status["report"]
+    print(
+        f"{status['submission_id']}: "
+        f"{'done' if status['done'] else 'running'} "
+        f"({report['n_completed']}/{report['n_cells']} cells)"
+    )
+    _print_report_summary(report)
+    return 0
+
+
+def _cmd_campaign_metrics(args) -> int:
+    from .service import ServiceClient
+
+    m = ServiceClient(args.url).metrics()
+    print(json.dumps(m, indent=2, sort_keys=True))
+    return 0
+
+
+# -------------------------------------------------------------------- chaos
+def _cmd_chaos_run(args) -> int:
+    from .faults.chaos import chaos_run
+
+    report = chaos_run(
+        args.spec,
+        plans=args.plans,
+        seed=args.seed,
+        out_root=args.out,
+        workers=args.workers,
+        wait_timeout_s=args.timeout,
+        device=args.device,
+    )
+    return 0 if report["ok"] else 1
 
 
 # ------------------------------------------------------------------ problem
@@ -398,6 +481,8 @@ def _cmd_trace_summary(args) -> int:
 
 # --------------------------------------------------------------------- main
 def main(argv: Optional[List[str]] = None) -> int:
+    from .faults.chaos import DEFAULT_SPEC
+
     ap = argparse.ArgumentParser(prog="repro_torch", description=__doc__)
 
     def device_arg(p) -> None:
@@ -447,7 +532,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "this many units are queued (default: unbounded)")
     p.add_argument("--service-root", default=None, dest="service_root",
                    help="service store root (default runs/service)")
-    p.set_defaults(fn=_unported('campaign serve'))
+    device_arg(p)
+    p.set_defaults(fn=_cmd_campaign_serve)
     p = csub.add_parser("submit", help="submit a campaign spec to a served instance")
     p.add_argument("spec", help="Campaign JSON file")
     p.add_argument("--url", required=True, help="service base URL")
@@ -459,14 +545,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="return right after submission")
     p.add_argument("--timeout", type=float, default=None,
                    help="max seconds to wait for completion")
-    p.set_defaults(fn=_unported('campaign submit'), wait=True)
+    p.set_defaults(fn=_cmd_campaign_submit, wait=True)
     p = csub.add_parser("status", help="incremental report of a served submission")
     p.add_argument("id", help="submission id (tenant--campaign_id)")
     p.add_argument("--url", required=True)
-    p.set_defaults(fn=_unported('campaign status'))
+    p.set_defaults(fn=_cmd_campaign_status)
     p = csub.add_parser("metrics", help="live service metrics (queue, dedup, tenants)")
     p.add_argument("--url", required=True)
-    p.set_defaults(fn=_unported('campaign metrics'))
+    p.set_defaults(fn=_cmd_campaign_metrics)
 
     ch = sub.add_parser("chaos", help="deterministic fault-injection sweeps")
     chsub = ch.add_subparsers(dest="action", required=True)
@@ -474,10 +560,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         "run",
         help="N seeded fault plans over a campaign + convergence checker",
     )
-    p.add_argument("--spec",
-                   default=os.path.join("benchmarks", "specs",
-                                        "campaign_smoke.json"),
-                   help="campaign spec to chaos-test (default: CI smoke)")
+    p.add_argument("--spec", default=DEFAULT_SPEC,
+                   help="campaign spec to chaos-test (default: the CI smoke "
+                        "spec with torch_nsga2)")
     p.add_argument("--plans", type=int, default=20, help="fault plans to sweep")
     p.add_argument("--seed", type=int, default=0,
                    help="plan-generation seed (same seed, same plans)")
@@ -486,7 +571,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--timeout", type=float, default=120.0,
                    help="per-phase wait timeout in seconds")
-    p.set_defaults(fn=_unported('chaos run'))
+    device_arg(p)
+    p.set_defaults(fn=_cmd_chaos_run)
 
     prob = sub.add_parser("problem", help="single ExplorationProblem utilities")
     psub = prob.add_subparsers(dest="action", required=True)
@@ -548,11 +634,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=_cmd_trace_summary)
 
     args = ap.parse_args(argv)
+    from .service.client import ServiceError
 
     try:
         return args.fn(args)
     except KeyboardInterrupt:
         return 130
+    except ServiceError as e:
+        # Retryable service failures (queue saturation 429, connection
+        # loss, 5xx after exhausted retries) get their own exit code so
+        # schedulers/scripts know a later resubmission can succeed.
+        print(f"repro_torch: error: {e}", file=sys.stderr)
+        return 3 if e.retryable else 2
     except TimeoutError as e:
         print(f"repro_torch: error: {e}", file=sys.stderr)
         return 3

@@ -525,6 +525,11 @@ class EvaluationEngine:
         obs.counter_add("engine.cache_hits", len(genotypes) - len(miss_order) - fallback)
         return out
 
+    def clear_cache(self) -> None:
+        """Forget every memoized decode (counters and the transformed-graph
+        cache are kept): the next lookups decode as on a fresh engine."""
+        self._cache.clear()
+
     # ------------------------------------------------------------ reporting
     def stats(self) -> Dict[str, int]:
         return {

@@ -25,6 +25,9 @@ worker processes:
   from a side thread; a missed heartbeat or dead process (SIGKILL) gets
   the worker respawned, its claims released, and its in-flight unit
   requeued with exponential backoff, at most ``max_retries`` times.
+  Each worker incarnation reports on a pipe of its own, so a worker
+  killed in the middle of a message can tear or wedge only its own
+  channel, which is dropped with it — never the pool's.
   Unit *exceptions* (e.g. an unknown decoder) are deterministic and fail
   immediately — only worker death is retried.
 
@@ -40,8 +43,8 @@ bit-identical.
 from __future__ import annotations
 
 import multiprocessing
+import multiprocessing.connection
 import os
-import queue as queue_mod
 import signal
 import socket
 import threading
@@ -148,6 +151,12 @@ def _execute_unit(
                     engine = problem.make_engine(
                         **{**cell.engine, **(engine_overrides or {})}
                     )
+                # The group shares the engine, not its decode cache: an
+                # artifact records the cell's decode counters, which must
+                # not depend on which cells this engine ran before (a
+                # resumed, deduplicated or crash-recovered group runs a
+                # different subset in a different order).
+                engine.clear_cache()
                 art = run_cell(cell, engine=engine)
                 faults.fire("sched.pre_publish", spec=h[:12])
                 published = store.publish_cell(h, art, owner)
@@ -238,12 +247,19 @@ def _execute_unit(
 # ==========================================================================
 # Worker process
 # ==========================================================================
-def _worker_main(wid: int, owner: str, task_q, result_q, cell_root: Optional[str],
+def _worker_main(wid: int, owner: str, task_q, results, cell_root: Optional[str],
                  hb_interval_s: float) -> None:
     """Worker loop: announce readiness, execute assigned units, heartbeat
     (and refresh held claims) from a side thread so a long decode never
-    looks dead."""
+    looks dead.  ``results`` is this incarnation's own pipe to the
+    supervisor; both threads write to it, one whole message at a time."""
     store = RunStore(cell_root)
+    send_lock = threading.Lock()
+
+    def send(msg: tuple) -> None:
+        with send_lock:
+            results.send(msg)
+
     obs.set_process_name(f"worker-{wid}")
     held: set = set()
     held_lock = threading.Lock()
@@ -266,7 +282,7 @@ def _worker_main(wid: int, owner: str, task_q, result_q, cell_root: Optional[str
             # this beat *and* the claim refreshes it carries.
             if faults.fire("sched.heartbeat", worker=wid) != "skip":
                 try:
-                    result_q.put(("heartbeat", wid, time.time()))
+                    send(("heartbeat", wid, time.time()))
                 except Exception:
                     return
                 with held_lock:
@@ -282,7 +298,7 @@ def _worker_main(wid: int, owner: str, task_q, result_q, cell_root: Optional[str
 
     from ..core.campaign import CampaignCell
 
-    result_q.put(("ready", wid))
+    send(("ready", wid))
     try:
         while True:
             msg = task_q.get()
@@ -292,7 +308,7 @@ def _worker_main(wid: int, owner: str, task_q, result_q, cell_root: Optional[str
             unit_id = payload["unit_id"]
 
             def emit(event: Dict[str, Any], _uid=unit_id, _p=payload) -> None:
-                result_q.put(
+                send(
                     ("event", wid,
                      {**event, "unit_id": _uid,
                       "campaign_id": _p["campaign_id"], "tenant": _p["tenant"]})
@@ -311,18 +327,18 @@ def _worker_main(wid: int, owner: str, task_q, result_q, cell_root: Optional[str
                     attrs={"unit": unit_id, "campaign": payload["campaign_id"],
                            "tenant": payload["tenant"], "worker": wid},
                 )
-                result_q.put(("unit_done", wid, unit_id, out))
+                send(("unit_done", wid, unit_id, out))
             except (SystemExit, KeyboardInterrupt):
                 raise  # shutdown signals unwind to the claim release below
             except BaseException as e:  # noqa: BLE001 — report, don't die
-                result_q.put(
+                send(
                     ("unit_error", wid, unit_id,
                      "".join(traceback.format_exception_only(type(e), e)).strip())
                 )
             # Flush per unit: the parent may terminate() this process on
             # shutdown, which skips atexit — unflushed spans would be lost.
             obs.flush()
-            result_q.put(("ready", wid))
+            send(("ready", wid))
     finally:
         stop.set()
         # A cleanly stopped (or SIGTERMed) worker never leaves claims for
@@ -335,21 +351,29 @@ def _worker_main(wid: int, owner: str, task_q, result_q, cell_root: Optional[str
 
 
 class _WorkerHandle:
-    def __init__(self, wid: int, generation: int, ctx, result_q,
+    def __init__(self, wid: int, generation: int, ctx,
                  cell_root: Optional[str], hb_interval_s: float) -> None:
         self.wid = wid
         self.generation = generation
         self.owner = f"{socket.gethostname()}:w{wid}g{generation}"
         self.task_q = ctx.Queue()
+        # A pipe of this incarnation's own, not a queue shared by the
+        # pool: a SIGKILL that lands while a worker holds a shared
+        # queue's write lock, or has written half a message, stalls
+        # every other worker or the collector for good.
+        self.results, writer = ctx.Pipe(duplex=False)
         self.proc = ctx.Process(
             target=_worker_main,
-            args=(wid, self.owner, self.task_q, result_q, cell_root, hb_interval_s),
+            args=(wid, self.owner, self.task_q, writer, cell_root, hb_interval_s),
             daemon=True,
         )
         self.last_heartbeat = time.time()
         self.current: Optional[WorkUnit] = None
         self.unit_started_at = 0.0
         self.proc.start()
+        # Only the worker holds the write end now, so its death reads as
+        # end-of-file here, torn message or not.
+        writer.close()
 
     @property
     def pid(self) -> Optional[int]:
@@ -392,7 +416,6 @@ class Scheduler:
         # (the digest-named libraries of kernels/_build.py are published
         # with os.replace, so concurrent builders are safe).
         self._ctx = multiprocessing.get_context("spawn")
-        self._result_q = self._ctx.Queue() if self.workers else None
         self._lock = threading.RLock()
         self._done_cv = threading.Condition(self._lock)
         self._queue: List[WorkUnit] = []
@@ -416,7 +439,7 @@ class Scheduler:
         if self.workers and self._collector is None:
             for wid in range(self.workers):
                 self._workers[wid] = _WorkerHandle(
-                    wid, 0, self._ctx, self._result_q, self.store.root,
+                    wid, 0, self._ctx, self.store.root,
                     self.cfg.heartbeat_interval_s,
                 )
             self._collector = threading.Thread(target=self._collect, daemon=True)
@@ -439,6 +462,8 @@ class Scheduler:
         if self._collector is not None:
             self._collector.join(timeout=timeout_s)
             self._collector = None
+        for h in self._workers.values():
+            h.results.close()
         # Claim hygiene on shutdown: workers release their own claims in
         # their ``finally``, but a worker that had to be terminate()d and
         # outran the join may not have — release by owner here, then GC
@@ -576,8 +601,8 @@ class Scheduler:
     # ------------------------------------------------------------ collector
     def _collect(self) -> None:
         # Maintenance (supervision checks + dispatch of backoff-delayed
-        # units) must run on a clock, not only when the result queue goes
-        # quiet: a busy pool heartbeating faster than the get() timeout
+        # units) must run on a clock, not only when the result pipes go
+        # quiet: a busy pool heartbeating faster than the wait() timeout
         # would otherwise starve it — requeued units whose backoff hadn't
         # elapsed at "ready"-time were never dispatched again (livelock
         # found by the chaos harness, plan000/seed 0).
@@ -586,43 +611,56 @@ class Scheduler:
             with self._lock:
                 if self._stopping:
                     return
+                handles = {h.results: h for h in self._workers.values()
+                           if not h.results.closed}
             try:
-                msg = self._result_q.get(timeout=0.2)
-            except queue_mod.Empty:
-                msg = None
+                ready = multiprocessing.connection.wait(list(handles), timeout=0.2)
+            except (OSError, ValueError):  # a pipe closed under us: shutdown
+                ready = []
+            msgs = []
+            for conn in ready:
+                try:
+                    msgs.append((handles[conn], conn.recv()))
+                except (EOFError, OSError):
+                    # The worker is gone, maybe mid-message; supervision
+                    # respawns it on a fresh pipe.
+                    conn.close()
             now = time.monotonic()
-            if msg is None or now - last_maintenance > 0.2:
+            if not msgs or now - last_maintenance > 0.2:
                 last_maintenance = now
                 self._check_workers()
                 with self._lock:
                     self._dispatch_locked()
-            if msg is None:
-                continue
-            kind = msg[0]
-            if kind == "heartbeat":
-                _, wid, ts = msg
+            for handle, msg in msgs:
+                if self._workers.get(handle.wid) is handle:
+                    self._handle_message(msg)
+
+    def _handle_message(self, msg: tuple) -> None:
+        kind = msg[0]
+        if kind == "heartbeat":
+            _, wid, ts = msg
+            h = self._workers.get(wid)
+            if h is not None:
+                h.last_heartbeat = ts
+        elif kind == "ready":
+            _, wid = msg
+            with self._lock:
                 h = self._workers.get(wid)
-                if h is not None:
-                    h.last_heartbeat = ts
-            elif kind == "ready":
-                _, wid = msg
-                with self._lock:
-                    h = self._workers.get(wid)
-                    # Guard against a replaced worker's stale "ready":
-                    # only a live, unassigned incarnation may go idle.
-                    if h is not None and h.current is None and wid not in self._idle:
-                        self._idle.append(wid)
-                    self._dispatch_locked()
-            elif kind == "event":
-                _, wid, event = msg
-                with self._lock:
-                    self._event(event)
-            elif kind == "unit_done":
-                _, wid, unit_id, out = msg
-                self._finish_unit(wid, unit_id, out=out)
-            elif kind == "unit_error":
-                _, wid, unit_id, err = msg
-                self._finish_unit(wid, unit_id, error=err)
+                # Guard against a replaced worker's stale "ready":
+                # only a live, unassigned incarnation may go idle.
+                if h is not None and h.current is None and wid not in self._idle:
+                    self._idle.append(wid)
+                self._dispatch_locked()
+        elif kind == "event":
+            _, wid, event = msg
+            with self._lock:
+                self._event(event)
+        elif kind == "unit_done":
+            _, wid, unit_id, out = msg
+            self._finish_unit(wid, unit_id, out=out)
+        elif kind == "unit_error":
+            _, wid, unit_id, err = msg
+            self._finish_unit(wid, unit_id, error=err)
 
     def _finish_unit(
         self, wid: int, unit_id: str,
@@ -709,8 +747,9 @@ class Scheduler:
                 if handle.alive():
                     handle.proc.terminate()
                 old_owner = handle.owner
+                handle.results.close()
                 self._workers[wid] = _WorkerHandle(
-                    wid, handle.generation + 1, self._ctx, self._result_q,
+                    wid, handle.generation + 1, self._ctx,
                     self.store.root, self.cfg.heartbeat_interval_s,
                 )
                 if wid in self._idle:

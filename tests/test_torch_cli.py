@@ -1,10 +1,12 @@
 """``python -m repro_torch``: every ported subcommand through ``main([...])``
 against the JAX package's CLI where both can run on the CPU (same
 campaign ids, stores and fronts, the same problem hash), the ``--device``
-rule, the one-line errors of unported subcommands and reference-only spec
-values, and two concurrent ``campaign resume`` processes converging."""
+rule, the one-line errors of the service and chaos subcommands and of
+reference-only spec values, and two concurrent ``campaign resume``
+processes converging."""
 import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -109,18 +111,29 @@ def test_device_defaults_to_the_card(tmp_path, capsys):
     assert len(err.strip().splitlines()) == 1
 
 
-@pytest.mark.parametrize("argv", [
-    ["campaign", "serve"],
-    ["campaign", "submit", "x.json", "--url", "http://127.0.0.1:1"],
-    ["campaign", "status", "t--c", "--url", "http://127.0.0.1:1"],
-    ["campaign", "metrics", "--url", "http://127.0.0.1:1"],
-    ["chaos", "run"],
+@pytest.mark.parametrize("argv,code,says", [
+    (["campaign", "serve", "--device", "cpu", "--workers", "0", "--service-root",
+      "{root}", "--port", "{busy}"], 2, "Address already in use"),
+    (["campaign", "submit", "{spec}", "--url", "http://127.0.0.1:1", "--no-wait"],
+     3, "cannot reach http://127.0.0.1:1"),
+    (["campaign", "status", "t--c", "--url", "http://127.0.0.1:1"], 3, "HTTP 0"),
+    (["campaign", "metrics", "--url", "http://127.0.0.1:1"], 3, "HTTP 0"),
+    (["chaos", "run", "--spec", "{missing}", "--device", "cpu"], 2, "missing.json"),
 ])
-def test_unported_subcommands_exit_2_in_one_line(argv, capsys):
-    assert main(argv) == 2
+def test_service_and_chaos_subcommands_fail_in_one_line(argv, code, says, tmp_path, capsys):
+    """The served subcommands and ``chaos run`` are ported: a port already
+    taken, an unreachable service (transient: exit 3) and a
+    missing spec each end in one line, never "not ported"."""
+    spec, _ = _spec(tmp_path)
+    with socket.socket() as busy:
+        busy.bind(("127.0.0.1", 0))
+        busy.listen(1)
+        argv = [a.format(spec=spec, missing=tmp_path / "missing.json", root=tmp_path / "svc",
+                         busy=busy.getsockname()[1]) for a in argv]
+        assert main(argv) == code
     err = capsys.readouterr().err
-    assert err.startswith("repro_torch: error: ") and "not ported" in err
-    assert "ROADMAP §1 item 8" in err and len(err.strip().splitlines()) == 1
+    assert err.startswith("repro_torch: error: ") and says in err
+    assert "not ported" not in err and len(err.strip().splitlines()) == 1
 
 
 def test_reference_only_spec_values_and_help(tmp_path, capsys):

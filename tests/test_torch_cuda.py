@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips (decided in a
-fixture, never at import).  Run on the card with
+fixture, never at import), but the service's default-device check, which
+then holds the one-line start-up failure.  Run on the card with
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 The cases are those of ``chip_smoke.py``: ``sim_step``'s kernel-vs-plain
 phase at its 32 distinct decodes, the large tier's widest scenarios and
-ILP-decoded Sobel schedules against the event simulator, and the ring
+ILP-decoded Sobel schedules against the event simulator, a served cell
+and an extracted LM graph's plan schedules through the kernel, and the ring
 kernels' sweeps (exact for ``mrb_append`` and the fused ``mrb_append_kv``,
 ω included; 3e-5 float32 and 2e-2 bfloat16 for ``mrb_decode_attention``,
 also at ``t = -1``, where the answer is the mean of V).  This file imports
@@ -547,3 +549,88 @@ def test_sim_parity_cli_on_the_card(device, capsys):
     assert main(["sim", "parity", "--batch", "16", "--device", "cuda"]) == 0
     assert "periods identical across backends: OK" in capsys.readouterr().out
     assert kmod.launches > before
+
+
+# ------------------------------------- the campaign service and planning layer
+def _inline_served_spec():
+    spec = chip_smoke.campaign_spec(name="served-on-the-card", apps=("Sobel",),
+                                    strategies=("MRB_Explore",), explorers=("nsga2",),
+                                    backends=("cuda",))
+    spec["explorer_params"] = {"population": 12, "offspring": 6, "generations": 2, "seed": 0}
+    return spec
+
+
+def test_inline_served_cell_on_the_card_equals_a_local_run(device, tmp_path):
+    """A service built with its default device runs a Sobel MRB_Explore
+    cell inline through the kernel; its artifact, wall time dropped, is
+    the local ``CampaignRunner``'s on the card."""
+    from repro_torch.core import Campaign, CampaignRunner, RunStore
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.service import CampaignService
+
+    spec = _inline_served_spec()
+    (cell,) = Campaign.from_json(spec).expand()
+    service = CampaignService(str(tmp_path / "svc"), workers=0)
+    try:
+        assert service.device == "cuda"
+        sid = service.submit(spec, tenant="card")["submission_id"]
+        before = kmod.launches
+        service.scheduler.drain()
+        launched = kmod.launches - before
+        assert service.status(sid)["done"]
+        served = service.store.cells.load_cell(cell.spec_hash())
+    finally:
+        service.close()
+    assert launched > 0
+    local = RunStore(str(tmp_path / "local"))
+    CampaignRunner(Campaign.from_json(spec), store=local,
+                   engine_overrides={"device": "cuda"}).run()
+    assert chip_smoke.strip_wall(served) == chip_smoke.strip_wall(
+        local.load_cell(cell.spec_hash()))
+    assert served["run"]["meta"]["device"].startswith("cuda")
+    assert os.listdir(tmp_path / "svc" / "global" / "claims") == []
+
+
+def test_plan_schedules_on_the_card_match_events(device):
+    """An extracted LM graph's plans (MusicGen-medium, 6 stages) on the
+    card: every plan's schedule through the kernel gives the event
+    simulator's fire times and period, with no int32 reroute."""
+    from repro_torch.configs import get_config
+    from repro_torch.dataflow import plan_mapping, tpu_pod_architecture
+    from repro_torch.dataflow.extract import ExtractOptions
+    from repro_torch.kernels import sim_step as kmod
+    from repro_torch.sim import SimConfig, batch_simulate, batched, simulate
+
+    plans = plan_mapping(get_config("musicgen-medium").model, 4096, 256,
+                         opts=ExtractOptions(n_stages=6), generations=3, population=8,
+                         seed=0, time_budget_s=None)
+    assert plans
+    arch, cfg = tpu_pod_architecture(), SimConfig(trace=False)
+    before, fallbacks = kmod.launches, batched.int32_fallbacks
+    for plan in plans:
+        (mine,) = batch_simulate(plan.graph, arch, [plan.schedule], cfg, backend="cuda",
+                                 device=device)
+        e = simulate(plan.graph, arch, plan.schedule, cfg)
+        assert (mine.fire_times, mine.period, mine.deadlocked) == (
+            e.fire_times, e.period, e.deadlocked)
+    assert kmod.launches - before == len(plans)
+    assert batched.int32_fallbacks == fallbacks
+
+
+def test_service_default_device_is_the_card(tmp_path, capsys):
+    """Decided inside the test: with a card, a service built without a
+    device runs on it; without one, ``campaign serve`` fails at start-up
+    in one line (nothing falls back to the CPU)."""
+    from repro_torch.cli import main
+    from repro_torch.service import CampaignService
+
+    if torch.cuda.is_available():
+        service = CampaignService(str(tmp_path / "svc"), workers=0)
+        assert service.device == "cuda"
+        service.close()
+        return
+    assert main(["campaign", "serve", "--workers", "0",
+                 "--service-root", str(tmp_path / "svc")]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("repro_torch: error: ") and "CUDA" in err
+    assert len(err.strip().splitlines()) == 1
