@@ -33,17 +33,22 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
    exactly equal over the JAX package's sweep (float32 and bfloat16,
    ω ∈ {0, 1, block−1, block, C−1}, mixed token types) and its wrap
    sequence; the fused ``mrb_append_kv`` exactly equal, ω included, over
-   the same sweep and the served shape with negative and clamped ω, and a
+   the same sweep and the served shapes (Gemma-2, Zamba2's kv=32 d=112,
+   MusicGen's kv=24 d=64) with negative and clamped ω, and a
    70-step wrap, one launch per call; ``mrb_decode_attention`` within 3e-5
    (float32) and 2e-2 (bfloat16) on the JAX package's five cases and on
    ragged, G=16 and C=1 cases, on split-edge cases (window far below C, a
-   partial fill that leaves nearly every split empty, ragged G=16) and at
-   t = -1 (nothing readable: the mean of V), also against the
+   partial fill that leaves nearly every split empty, ragged G=16), at
+   t = -1 (nothing readable: the mean of V) and at phase 14's attention
+   shapes (Zamba2's d=112 G=1 kv=32, MusicGen's d=64 G=1 kv=24, Mixtral's
+   G=4, InternVL2's G=2, Qwen3-MoE's G=16 kv=4; served rings that wrap,
+   and rings past and inside a window), also against the
    plain split-and-merge at the kernel's own cluster size; CUDA-event
    times of both at the served shape (over the 42 layers' rings, so L2 is
    cold as in the model) and at long shapes (a Gemma-2 local layer in a
    32k cache and G=16 among them), each with its cluster size and shared
    memory,
+   (and each family's served shape, cycling over its model's rings),
    each beside its bytes bound at 3.35 TB/s, the plain version's time and
    one PyTorch call's (``index_copy_``; ``scaled_dot_product_attention``
    where there is no softcap); at the served shape also the fused write
@@ -149,6 +154,32 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     backend equal to the event simulator, launches > 0,
     ``int32_fallbacks`` printed, the MRB trade-off held where both
     choices survive.
+14. the model families, bfloat16 weights and cache, random weights from
+    seed 0, B=4, a 32-token ``make_batch`` prompt, 32 greedy tokens, ring
+    64: (a) Zamba2-7B at full width and depth (81 Mamba2 layers, 13
+    shared-attention invocations, a 3-layer tail) through
+    ``repro_torch.launch.serve.serve``: 13 × 64 launches of each ring
+    kernel, no ``sim_step``, every shared ring's t = 64, every state leaf
+    finite, tokens in range, the kernel against the plain version on the
+    first and last shared rings; (b) ``prefill_step`` at L=4096, B=1, for
+    Zamba2-7B (16 SSD chunks, chunked shared attention) and InternVL2-2B
+    (256 image + 3,840 text tokens): logits finite of shape [1, 1, V], wall
+    time, peak memory and the largest difference to the same model's
+    direct-attention path (the threshold raised for one call); (c)
+    Mixtral-8x7B cut to 8 of its 32 layers (the 32 need 93 GB in bfloat16,
+    over one card's 80 GB), MusicGen-medium (4 codebooks, 256 conditioning
+    embeddings; tokens [4, 4, 32]) and Mamba2-370M (no ring launch) served
+    with the same checks; each served run prints init s, prefill s, decode
+    ms per step, tok/s, launches per step (torch.profiler) and the
+    weight-read floor (parameters × 2 B / 3.35 TB/s; all of Mixtral's
+    experts, which its formulation reads); (d) each of the six smoke
+    configurations this slice adds, card (kernels) against CPU (plain
+    versions), float32 with TF32 off: prompt 24, 48 greedy tokens, ring 64
+    (Zamba2's window cut to 32), so every ring wraps; logits within 1e-4
+    at every step, identical tokens, then ``forward`` and ``prefill_step``
+    (L=128, blocks lowered to 32/64 rows so the chunked path runs) within
+    1e-4.  Qwen3-MoE-235B (470 GB in bfloat16) is not served at full width:
+    its attention shape is held in phase 6 and its smoke config in (d).
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -533,6 +564,19 @@ ATTN_CASES = (  # B, C, kv, G, d, window, softcap, t
     (1, 4113, 8, 16, 256, 0, 0.0, 4200),     # ragged, G=16, no window
     (1, 4096, 2, 2, 128, 0, 50.0, -1),       # nothing readable: the mean of V, split S >= 2
     (1, 4096, 2, 2, 128, 256, 50.0, -1),     # the same with a window
+    # the model families' attention layers: at their served ring (64 slots,
+    # wrapped), and inside and past the window of a ring that wraps
+    (4, 64, 32, 1, 112, 4096, 0.0, 100),     # Zamba2 shared: d=112 (14 bf16 chunks), G=1
+    (2, 256, 32, 1, 112, 100, 0.0, 300),     # d=112, window < C, past the window
+    (1, 4160, 32, 1, 112, 4096, 0.0, 3000),  # d=112, inside the window, no wrap yet
+    (1, 4160, 32, 1, 112, 4096, 0.0, 9000),  # d=112, past the window, wrapped
+    (4, 64, 24, 1, 64, 0, 0.0, 100),         # MusicGen: d=64, G=1, kv=24
+    (2, 512, 24, 1, 64, 0, 0.0, 300),        # MusicGen, partial fill
+    (4, 64, 8, 4, 128, 4096, 0.0, 100),      # Mixtral: G=4, window 4096
+    (1, 4160, 8, 4, 128, 4096, 0.0, 9000),   # Mixtral, past the window, wrapped
+    (4, 64, 8, 2, 128, 0, 0.0, 100),         # InternVL2: G=2, d=128
+    (4, 64, 4, 16, 128, 0, 0.0, 100),        # Qwen3-MoE: G=16, kv=4
+    (1, 4160, 4, 16, 128, 0, 0.0, 5000),     # Qwen3-MoE, wrapped
 )
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 GEMMA_LAYERS = 42
@@ -544,13 +588,25 @@ TIMED_ATTN = (  # name, B, C, kv, G, d, window, softcap, t, rings cycled
     ("qwen3_long", 16, 32768, 8, 2, 128, 0, 0.0, 32768 + 5, 1),
     ("local_in_32k", 16, 32768, 8, 2, 256, 4096, 50.0, 32768 + 5, 1),  # Gemma-2 local layer, 32k cache
     ("g16_4k", 16, 4096, 8, 16, 256, 0, 0.0, 4096 + 5, 1),  # the most readers a kv head may have
+    # phase 14's families at their served shape, cycling over their rings
+    ("zamba2_shared", 4, 64, 32, 1, 112, 4096, 0.0, 63, 13),
+    ("mixtral_served", 4, 64, 8, 4, 128, 4096, 0.0, 63, 8),
+    ("musicgen_served", 4, 64, 24, 1, 64, 0, 0.0, 63, 48),
+    ("internvl2_served", 4, 64, 8, 2, 128, 0, 0.0, 63, 24),
+    ("qwen3moe_served", 4, 64, 4, 16, 128, 0, 0.0, 63, 94),
+    ("zamba2_long", 16, 4096, 32, 1, 112, 4096, 0.0, 4096 + 5, 1),
 )
+FAMILY_ATTN = ("zamba2_shared", "mixtral_served", "musicgen_served", "internvl2_served",
+               "qwen3moe_served", "zamba2_long")
 TIMED_APPEND = (  # name, B, C, H (kv heads), d, rings cycled; the served shape first
     ("served", 4, 64, 8, 256, GEMMA_LAYERS),
     ("long_local", 16, 4096, 8, 256, 1),
     ("long_global", 16, 32768, 8, 256, 1),
     ("qwen3_long", 16, 32768, 8, 128, 1),
+    ("zamba2_shared", 4, 64, 32, 112, 13),
+    ("musicgen_served", 4, 64, 24, 64, 48),
 )
+FAMILY_APPEND = ("zamba2_shared", "musicgen_served")
 SERVE = dict(batch=4, prompt_len=32, new_tokens=32, context=64, seed=0)
 WRAP = dict(batch=4, prompt_len=24, new_tokens=48, context=64, window=32)
 
@@ -631,7 +687,9 @@ def check_append_kv(device):
             f"mrb_append_kv rings differ at {(tuple(bk.shape), omega, bk.dtype, k.dtype)}"
         assert int(om) == int(om_ref), f"mrb_append_kv ω {int(om)} != {int(om_ref)}"
 
-    for B, C, H, d, block in APPEND_CASES + ((4, 64, 8, 256, 64),):  # and the served shape
+    # and the served shapes: Gemma-2, Zamba2's shared block, MusicGen
+    for B, C, H, d, block in APPEND_CASES + ((4, 64, 8, 256, 64), (4, 64, 32, 112, 64),
+                                             (4, 64, 24, 64, 64)):
         for bdt in (torch.float32, torch.bfloat16):
             for tdt in (torch.float32, torch.bfloat16):
                 bk, bv = randn((B, C, H, d), bdt, device, gen), randn((B, C, H, d), bdt, device, gen)
@@ -848,49 +906,59 @@ def phase_ring_kernels(device):
         attn_rows.append(time_attention(row, device))
         log("phase ring-kernels: mrb_decode_attention timing", json.dumps(attn_rows[-1]))
     log("phase ring-kernels: clocks after the timings:", nvidia_smi_clocks())
-    return append_err, attn_err, append_rows[0], attn_rows
+    return append_err, attn_err, append_rows, attn_rows
+
+
+def ring_check(rings, idxs, n_heads, hd, windows, softcap, device):
+    """The kernel against the plain version on live rings ``idxs`` of a
+    stacked ring state (``k``/``v`` [n, B, C, kv, d], ``t`` [n]), with a
+    seeded query at the last written position; returns each max abs error."""
+    import torch
+    from repro_torch.kernels.decode_attention import mrb_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    errs = []
+    for l, window in zip(idxs, windows):
+        q = randn((rings["k"].shape[1], n_heads, hd), rings["k"].dtype, device, gen, 0.3)
+        t = rings["t"][l] - 1  # the last written position
+        args = (q, rings["k"][l], rings["v"][l], t)
+        got = mrb_decode_attention(*args, window=window, softcap=softcap)
+        want = decode_attention_ref(*args, window, softcap)
+        err = float((got.float() - want.float()).abs().max())
+        assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2), \
+            f"live ring {l}: max abs err {err}"
+        errs.append(err)
+    return errs
 
 
 def live_ring_check(model, state, device):
     """The kernel against the plain version on the live rings of layer 0
     (local) and layer 1 (global) after a serving run."""
-    import torch
-    from repro_torch.kernels.decode_attention import mrb_decode_attention
-    from repro_torch.kernels.ref import decode_attention_ref
-
     cfg = model.cfg
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1)
-    layers = state["layers"]
-    errs = []
-    for l in (0, 1):
-        q = randn((layers["k"].shape[1], cfg.n_heads, cfg.resolved_head_dim),
-                  layers["k"].dtype, device, gen, 0.3)
-        t = layers["t"][l] - 1  # the last written position
-        args = (q, layers["k"][l], layers["v"][l], t)
-        got = mrb_decode_attention(*args, window=model.windows[l], softcap=cfg.attn_softcap)
-        want = decode_attention_ref(*args, model.windows[l], cfg.attn_softcap)
-        err = float((got.float() - want.float()).abs().max())
-        assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2), \
-            f"live ring of layer {l}: max abs err {err}"
-        errs.append(err)
-    return errs
+    return ring_check(state["layers"], (0, 1), cfg.n_heads, cfg.resolved_head_dim,
+                      model.windows[:2], cfg.attn_softcap, device)
 
 
-def profile_decode(model, state, steps=3):
-    """Device busy share and the top kernels over ``steps`` decode steps,
-    from torch.profiler's CUDA kernel events (None where it saw none)."""
+def profile_decode(model, state, steps=3, batch=SERVE["batch"], cond=None):
+    """Device busy share and the top kernels over ``steps`` decode steps
+    (tokens [batch, 1], or [batch, K, 1] for audio; ``cond`` passed to
+    every step), from torch.profiler's CUDA kernel events (None where it
+    saw none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime import make_serve_step
 
-    step = make_serve_step(model.cfg)
-    tok = torch.zeros((state["layers"]["k"].shape[1], 1), dtype=torch.int32, device=model.device)
+    cfg = model.cfg
+    step = make_serve_step(cfg)
+    shape = (batch, cfg.n_codebooks, 1) if cfg.n_codebooks else (batch, 1)
+    tok = torch.zeros(shape, dtype=torch.int32, device=model.device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tok, _, state = step(model, tok, state)
+            tok, _, state = step(model, tok, state, cond)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2343,6 +2411,268 @@ def phase_service(device, local_artifacts):
     return out
 
 
+# ------------------------------------------------------------ model families
+# Phase 14: every family the JAX package serves, random weights from seed 0,
+# bfloat16 weights and cache, B=4, a 32-token make_batch prompt, 32 greedy
+# tokens, ring 64 (FAMILY_SERVE).  Cuts: Mixtral-8x7B's depth to
+# MIXTRAL_LAYERS of 32 (its 32 layers need 93 GB in bfloat16, over one
+# card's 80 GB; 8 layers are 11.9e9 parameters); Qwen3-MoE-235B is not
+# served at full width (470 GB in bfloat16): its attention shape is held in
+# phase 6 and its smoke config in (d).  Zamba2-7B, MusicGen-medium (4
+# codebooks, 256 conditioning embeddings), Mamba2-370M and InternVL2-2B
+# (prefill only: its decode takes text tokens) run at full width and depth.
+FAMILY_SERVE = dict(batch=4, prompt_len=32, new_tokens=32, context=64, seed=0)
+MIXTRAL_LAYERS = 8
+PREFILL_LEN = 4096   # (b): 16 SSD chunks and the chunked attention (L > 2048)
+FAMILY_SMOKE = ("mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-370m", "zamba2-7b",
+                "musicgen-medium", "internvl2-2b")
+FAMILY_WRAP = dict(batch=4, prompt_len=24, new_tokens=48, context=64, zamba2_window=32)
+FORWARD = dict(batch=2, L=128, q_block=32, k_block=64)  # (d): chunked through lowered blocks
+
+
+def ring_layers(cfg) -> int:
+    """Rings one decode step writes and reads: a hybrid's shared
+    invocations, every layer of an attention config, none for Mamba2."""
+    if cfg.shared_attn_every:
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0 if cfg.layer_kinds()[0] == "s" else cfg.n_layers
+
+
+def served_family(res, counts, device, cond=None):
+    """Phase 14's checks and timings of one served run: launch counts,
+    tokens, logits, every state leaf finite, ring counters, the kernel on
+    the first and last live rings, the weight-read floor, a profiled
+    window of decode steps."""
+    import torch
+
+    model, state = res["model"], res["state"]
+    cfg = model.cfg
+    steps = FAMILY_SERVE["prompt_len"] + FAMILY_SERVE["new_tokens"]
+    n = ring_layers(cfg)
+    assert counts["mrb_append"] == n * steps, (cfg.name, counts)
+    assert counts["mrb_decode_attention"] == n * steps, (cfg.name, counts)
+    assert counts["sim_step"] == 0, counts
+    gen = res["generated"]
+    want = (FAMILY_SERVE["batch"],) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + (
+        FAMILY_SERVE["new_tokens"],)
+    assert tuple(gen.shape) == want, (cfg.name, tuple(gen.shape))
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab, "tokens out of range"
+    assert torch.isfinite(res["last_logits"]).all(), f"{cfg.name}: non-finite logits"
+    for top, leaves in state.items():
+        for k, v in leaves.items():
+            assert v.dtype == torch.int32 or torch.isfinite(v.float()).all(), f"{top}.{k} not finite"
+    live = []
+    if n:
+        rings = state["shared"] if cfg.shared_attn_every else state["layers"]
+        assert rings["t"].tolist() == [steps] * n, rings["t"].tolist()
+        windows = ([cfg.sliding_window] * 2 if cfg.shared_attn_every
+                   else [model.windows[0], model.windows[-1]])
+        live = ring_check(rings, (0, n - 1), cfg.n_heads, cfg.resolved_head_dim, windows,
+                          cfg.attn_softcap, device)
+    params = cfg.param_count()
+    summary = dict(res["summary"], launches=counts, ring_layers=n, params=params,
+                   weight_floor_ms=params * 2 / HBM_BYTES_PER_S * 1e3, live_ring_err=live,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   first_tokens=gen[0].reshape(-1)[:8].tolist())
+    prof = profile_decode(model, state, batch=FAMILY_SERVE["batch"], cond=cond)
+    if prof:
+        prof["busy_share_of_unprofiled_step"] = (
+            prof["device_busy_ms_per_step"] / summary["decode_ms_per_step"])
+        summary["launches_per_step"] = prof["kernels_per_step"]
+    summary["profile"] = prof
+    log("phase families: served", json.dumps(summary))
+    return summary
+
+
+def serve_depth_cut(arch, n_layers, device):
+    """``serve`` for a configuration cut to ``n_layers``: the launcher's
+    init_model, make_batch and generate, timed as ``serve`` times them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+
+    cfg = get_config(arch).model.replace(n_layers=n_layers)
+    S = FAMILY_SERVE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=S["seed"], device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = make_batch(cfg, S["prompt_len"], S["batch"], device=device)
+    res = generate(model, data["tokens"], S["new_tokens"], S["context"],
+                   cond_embeds=data.get("cond_embeds"))
+    res["model"] = model
+    res["summary"] = dict(
+        arch=f"{cfg.name} (depth {n_layers})", init_s=init_s, prefill_s=res["prefill_s"],
+        decode_ms_per_step=res["decode_s"] / S["new_tokens"] * 1e3,
+        decode_tok_per_s=S["new_tokens"] * S["batch"] / res["decode_s"],
+        ring_capacity=S["context"], device=torch.cuda.get_device_name(device))
+    return res
+
+
+def prefill_at_full_width(model, device):
+    """(b): ``prefill_step`` on a PREFILL_LEN-token make_batch input (B=1),
+    then once more with the port's CHUNKED_ATTN_THRESHOLD raised so that
+    every attention takes the direct path; wall time, peak memory and the
+    largest logit difference between the two."""
+    import torch
+    import repro_torch.models.model as TM
+    from repro_torch.data import make_batch
+
+    cfg = model.cfg
+    data = make_batch(cfg, PREFILL_LEN, 1, device=device)
+    kw = {k: data[k] for k in ("img_embeds", "cond_embeds") if k in data}
+    out = {}
+    for path in ("chunked", "direct"):
+        old = TM.CHUNKED_ATTN_THRESHOLD
+        if path == "direct":
+            TM.CHUNKED_ATTN_THRESHOLD = 10 ** 9
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits = TM.prefill_step(model, data["tokens"], **kw)
+            torch.cuda.synchronize()
+            out[path] = dict(s=time.perf_counter() - t0,
+                             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            TM.CHUNKED_ATTN_THRESHOLD = old
+        want = (1,) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + (1, cfg.vocab)
+        assert tuple(logits.shape) == want and torch.isfinite(logits).all(), (cfg.name, path)
+        out[path]["logits"] = logits
+    diff = float((out["chunked"].pop("logits") - out["direct"].pop("logits")).abs().max())
+    row = dict(arch=cfg.name, L=PREFILL_LEN, chunked=out["chunked"], direct=out["direct"],
+               max_abs_diff_chunked_vs_direct=diff)
+    log("phase families: prefill_step", json.dumps(row))
+    return row
+
+
+def family_card_vs_cpu(arch, device):
+    """(d): a smoke configuration on the card (kernels) and on the CPU
+    (plain versions), same weights, float32 (TF32 off): a wrapping ring's
+    logits within 1e-4 at every step and identical greedy tokens, then
+    ``forward`` and ``prefill_step`` within 1e-4 on the chunked path
+    (the port's block constants lowered for the call)."""
+    import copy
+
+    import torch
+    import repro_torch.models.model as TM
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+
+    cfg = get_config(arch).smoke
+    if cfg.shared_attn_every:
+        cfg = cfg.replace(sliding_window=FAMILY_WRAP["zamba2_window"])
+    host = init_model(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(device)
+    W = FAMILY_WRAP
+    data = make_batch(cfg, W["prompt_len"] + cfg.n_img_tokens, W["batch"], device="cpu")
+    cond = data.get("cond_embeds")
+    reset_counts()
+    on_card = generate(card, data["tokens"].to(device), W["new_tokens"], W["context"],
+                       cond_embeds=None if cond is None else cond.to(device), keep_logits=True)
+    counts = read_counts()
+    on_cpu = generate(host, data["tokens"], W["new_tokens"], W["context"], cond_embeds=cond,
+                      keep_logits=True)
+    steps = W["prompt_len"] + W["new_tokens"]
+    n = ring_layers(cfg)
+    assert counts["mrb_append"] == counts["mrb_decode_attention"] == n * steps, (arch, counts)
+    assert torch.equal(on_card["generated"].cpu(), on_cpu["generated"]), f"{arch}: tokens differ"
+    assert len(on_card["logits"]) == steps
+    err = 0.0
+    for a, b in zip(on_card["logits"], on_cpu["logits"]):
+        a = a.cpu()
+        err = max(err, float((a - b).abs().max()))
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4), f"{arch}: logits differ by {err}"
+
+    F = FORWARD
+    fb = make_batch(cfg, F["L"], F["batch"], device="cpu")
+    kw = {k: fb[k] for k in ("img_embeds", "cond_embeds") if k in fb}
+    kw_card = {k: v.to(device) for k, v in kw.items()}
+    saved = (TM.CHUNKED_ATTN_THRESHOLD, TM.ATTN_Q_BLOCK, TM.ATTN_K_BLOCK)
+    TM.CHUNKED_ATTN_THRESHOLD, TM.ATTN_Q_BLOCK, TM.ATTN_K_BLOCK = 1, F["q_block"], F["k_block"]
+    try:
+        (hf, ha), (cf, ca) = (TM.forward(host, fb["tokens"], **kw),
+                              TM.forward(card, fb["tokens"].to(device), **kw_card))
+        hp = TM.prefill_step(host, fb["tokens"], **kw)
+        cp = TM.prefill_step(card, fb["tokens"].to(device), **kw_card)
+    finally:
+        TM.CHUNKED_ATTN_THRESHOLD, TM.ATTN_Q_BLOCK, TM.ATTN_K_BLOCK = saved
+    fwd_err = float((cf.detach().cpu() - hf.detach()).abs().max())
+    pre_err = float((cp.cpu() - hp).abs().max())
+    assert torch.allclose(cf.detach().cpu(), hf.detach(), atol=1e-4, rtol=1e-4), \
+        f"{arch}: forward differs by {fwd_err}"
+    assert abs(float(ca) - float(ha)) <= 1e-4 * max(1.0, abs(float(ha))), f"{arch}: aux differs"
+    assert torch.allclose(cp.cpu(), hp, atol=1e-4, rtol=1e-4), \
+        f"{arch}: prefill_step differs by {pre_err}"
+    row = dict(arch=cfg.name, steps=steps, ring_capacity=W["context"], ring_layers=n,
+               window=cfg.sliding_window, max_abs_logit_err=err, tokens_identical=True,
+               launches=counts, forward_err=fwd_err, prefill_step_err=pre_err)
+    log("phase families: card vs CPU", json.dumps(row))
+    return row
+
+
+def phase_families(device):
+    """Phase 14: (a) Zamba2-7B served at full width and depth, (b)
+    ``prefill_step`` at L=4096 for Zamba2-7B and InternVL2-2B, (c)
+    Mixtral-8x7B (depth cut), MusicGen-medium and Mamba2-370M served, (d)
+    the six new smoke configurations on the card equal to the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_model
+
+    t_phase = time.perf_counter()
+    out = {"served": {}, "prefill": {}, "smoke": {}}
+    live = []
+
+    def run(arch, fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = fn()
+        counts = read_counts()
+        cond = None
+        if res["model"].cfg.n_cond_tokens:  # the conditioning serve() passed to every step
+            cfg = res["model"].cfg
+            cond = make_batch(cfg, FAMILY_SERVE["prompt_len"], FAMILY_SERVE["batch"],
+                              device=device)["cond_embeds"]
+        row = served_family(res, counts, device, cond=cond)
+        live.extend(row["live_ring_err"])
+        out["served"][arch] = row
+        return res
+
+    # (a) and (b): Zamba2-7B, the slice's full-width path, then its prefill
+    res = run("zamba2-7b", lambda: serve("zamba2-7b", device=device, **FAMILY_SERVE))
+    model = res["model"]
+    del res
+    out["prefill"]["zamba2-7b"] = prefill_at_full_width(model, device)
+    del model
+    torch.cuda.empty_cache()
+    model = init_model(get_config("internvl2-2b").model, seed=0, device=device)
+    out["prefill"]["internvl2-2b"] = prefill_at_full_width(model, device)
+    del model
+    # (c)
+    res = run("mixtral-8x7b", lambda: serve_depth_cut("mixtral-8x7b", MIXTRAL_LAYERS, device))
+    del res
+    for arch in ("musicgen-medium", "mamba2-370m"):
+        res = run(arch, lambda: serve(arch, device=device, **FAMILY_SERVE))
+        del res
+    torch.cuda.empty_cache()
+    # (d)
+    for arch in FAMILY_SMOKE:
+        out["smoke"][arch] = family_card_vs_cpu(arch, device)
+    out["live_ring_err"] = max(live)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase families: {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -2386,7 +2716,8 @@ def main() -> int:
     log("phase build: decode_attention dynamic shared memory per CTA:",
         {f"G={G},d={d},{name}": smem(G, d, elt) for G, d in ((2, 256), (2, 128), (16, 256))
          for name, elt in (("bf16", 2), ("f32", 4))})
-    append_err, attn_err, append_row, attn_rows = phase_ring_kernels(device)
+    append_err, attn_err, append_rows, attn_rows = phase_ring_kernels(device)
+    append_row = append_rows[0]
     serving, _ = phase_serving(device)
     phase_ring_wrap(device)
     phase_qwen3(device)
@@ -2394,8 +2725,14 @@ def main() -> int:
     exact = phase_exact_and_scenarios(device)
     campaign = phase_campaign(device)
     service = phase_service(device, campaign.pop("artifacts"))
+    families = phase_families(device)
 
     served = attn_rows[0]
+    timed_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    family_launches = {
+        name: dict({arch: row["launches"][name] for arch, row in families["served"].items()},
+                   smoke={arch: row["launches"][name] for arch, row in families["smoke"].items()})
+        for name in ("mrb_append", "mrb_decode_attention")}
     qwen3_long = next(r for r in attn_rows if r["shape"] == "qwen3_long")
     kernels = [
         dict(name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
@@ -2428,15 +2765,21 @@ def main() -> int:
              bound_ms=append_row["bound_ms"], bound_by=append_row["bound_by"],
              library_ms=append_row["library_ms"], host_us=append_row["host_us"],
              kv={key: append_row["kv"][key]
-                 for key in ("ms", "replaced_ms", "library_ms", "bound_ms", "host_us")}),
+                 for key in ("ms", "replaced_ms", "library_ms", "bound_ms", "host_us")},
+             families={r["shape"]: {key: r[key] for key in timed_keys}
+                       for r in append_rows if r["shape"] in FAMILY_APPEND},
+             family_launches=family_launches["mrb_append"]),
         dict(name="mrb_decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:82",
              launches=serving["launches"]["mrb_decode_attention"],
-             max_abs_err=max([attn_err] + serving["live_ring_err"]),
+             max_abs_err=max([attn_err, families["live_ring_err"]] + serving["live_ring_err"]),
              ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
              bound_by=served["bound_by"], library_ms=served["library_ms"],
-             qwen3_long={key: qwen3_long[key] for key in ("ms", "library_ms", "bound_ms")}),
+             qwen3_long={key: qwen3_long[key] for key in ("ms", "library_ms", "bound_ms")},
+             families={r["shape"]: {key: r[key] for key in timed_keys + ("splits", "tile")}
+                       for r in attn_rows if r["shape"] in FAMILY_ATTN},
+             family_launches=family_launches["mrb_decode_attention"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

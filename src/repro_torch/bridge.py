@@ -95,29 +95,61 @@ def _is_norm_param(name: str) -> bool:
     )
 
 
+def _jax_key(cfg: ModelConfig, name: str):
+    """(JAX tree key, index into its stacked axes) of the port's parameter
+    ``name``: layer ``l`` of ``blocks`` is ``blocks[l]``, or for a hybrid
+    ``blocks[l // every][l % every]`` and past the groups ``tail[j]``."""
+    if not name.startswith("blocks."):
+        return name, ()
+    _, layer, rest = name.split(".", 2)
+    l = int(layer)
+    every = cfg.shared_attn_every
+    if not every:
+        return f"blocks.{rest}", (l,)
+    n_groups = cfg.n_layers // every
+    if l < n_groups * every:
+        return f"blocks.{rest}", (l // every, l % every)
+    return f"tail.{rest}", (l - n_groups * every,)
+
+
+def _stack_shape(cfg: ModelConfig, key: str):
+    """The stacked axes the reference's tree has in front of leaf ``key``."""
+    every = cfg.shared_attn_every
+    if key.startswith("blocks."):
+        return (cfg.n_layers // every, every) if every else (cfg.n_layers,)
+    if key.startswith("tail."):
+        return (cfg.n_layers - cfg.n_layers // every * every,)
+    return ()
+
+
 def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> DecoderLM:
     """The JAX ``init_model(rng, cfg)`` tree, leaves as numpy arrays, as the
     port's :class:`~repro_torch.models.model.DecoderLM`.  Layer ``l`` of the
-    stacked ``blocks`` tree becomes ``blocks.<l>``; keys, shapes and dtypes
-    must match exactly, except that a block's bfloat16 norm scales, biases
-    and ``q_norm``/``k_norm`` (what the reference's bfloat16 trees hold)
-    are up-cast to the port's float32, which is exact."""
+    stacked ``blocks`` tree becomes ``blocks.<l>``; a hybrid's grouped
+    ``blocks [n_groups, every, …]`` and ``tail`` become ``blocks.<l>`` in
+    layer order and its ``shared`` block ``shared``.  Keys, stacked axes,
+    shapes and dtypes must match exactly, except that a block's bfloat16
+    norm scales, biases and ``q_norm``/``k_norm`` (what the reference's
+    bfloat16 trees hold) are up-cast to the port's float32, which is exact.
+    The SSM vectors and the MoE router stay in the tree's dtype, as the
+    port keeps them in ``cfg.dtype``."""
     model = DecoderLM(cfg, device=resolve_device(device))
     flat = _flatten(tree)
     want = set()
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.startswith("blocks."):
-                _, layer, rest = name.split(".", 2)
-                key = f"blocks.{rest}"
-                src = np.asarray(flat[key])[int(layer)] if key in flat else None
-            else:
-                key = name
-                src = flat.get(key)
+            key, index = _jax_key(cfg, name)
             want.add(key)
-            if src is None:
+            if key not in flat:
                 raise KeyError(f"params_from_jax: the JAX tree has no {key!r}")
-            x = _to_torch(src, p.device)
+            src = np.asarray(flat[key])
+            stack = _stack_shape(cfg, key)
+            if src.shape[:len(stack)] != stack:
+                raise ValueError(
+                    f"params_from_jax: {key} is stacked as {src.shape[:len(stack)]}, "
+                    f"expected {stack}"
+                )
+            x = _to_torch(src[index], p.device)
             if _is_norm_param(name) and x.dtype == torch.bfloat16 and p.dtype == torch.float32:
                 # The reference casts every float32 leaf with ndim >= 2 to
                 # cfg.dtype, so stacked [L, d] norm scales arrive in
@@ -138,11 +170,13 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> Decode
 
 
 def decode_state_from_jax(state: Mapping, *, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """The JAX ``init_decode_state``/``decode_step`` cache (``layers`` with
-    ``k``, ``v`` [L, B, C, kv, d], ``omega``, ``t`` [L]), leaves as numpy
-    arrays, as the port's decode state (copies, on ``device``)."""
+    """The JAX ``init_decode_state``/``decode_step`` state, leaves as numpy
+    arrays, as the port's decode state (copies, on ``device``): every
+    top-level key (``layers`` with ``k``, ``v`` [L, B, C, kv, d],
+    ``omega``, ``t`` [L] or ``conv``, ``ssm``; a hybrid's ``shared``)."""
     dev = resolve_device(device)
-    return {"layers": {k: _to_torch(v, dev) for k, v in state["layers"].items()}}
+    return {top: {k: _to_torch(v, dev) for k, v in leaves.items()}
+            for top, leaves in state.items()}
 
 
 def decode_state_to_numpy(state: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
@@ -151,4 +185,4 @@ def decode_state_to_numpy(state: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
         x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
-    return {"layers": {k: arr(v) for k, v in state["layers"].items()}}
+    return {top: {k: arr(v) for k, v in leaves.items()} for top, leaves in state.items()}

@@ -4,7 +4,11 @@ Prefills a batch of prompts token by token, then decodes new tokens step
 by step.  Each attention layer's step appends K and V to its ring with
 the ``mrb_append`` kernel and attends with the multi-reader
 ``mrb_decode_attention`` kernel; on the CPU both run their plain torch
-versions.  The ring cache is in the model's dtype.
+versions.  The ring cache is in the model's dtype.  Every step gets
+``make_batch``'s ``cond_embeds`` (MusicGen's cross-attention); audio
+prompts ``[B, K, L]`` decode ``[B, K, 1]`` tokens; InternVL2 decodes its
+text tokens (the image prefix goes through ``prefill_step`` only, as in the
+JAX launcher).
 
 Example:
   python -m repro_torch.launch.serve --arch gemma2-9b --smoke --device cpu
@@ -35,13 +39,15 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: DecoderLM, prompt: torch.Tensor, new_tokens: int, context: int,
-             *, keep_logits: bool = False) -> Dict:
-    """Greedy decoding of ``prompt`` [B, L] on the model's device.
+             *, cond_embeds: Optional[torch.Tensor] = None, keep_logits: bool = False) -> Dict:
+    """Greedy decoding of ``prompt`` [B, L] (audio: [B, K, L]) on the
+    model's device, ``cond_embeds`` passed to every step.
 
-    Returns ``generated`` [B, new_tokens] int32, the final ``state``, the
-    ``last_logits`` [B, 1, V], the wall seconds of ``prefill_s`` and
-    ``decode_s`` (each ending in a device synchronise) and, with
-    ``keep_logits``, every step's logits in ``logits``.
+    Returns ``generated`` [B, new_tokens] (audio: [B, K, new_tokens])
+    int32, the final ``state``, the ``last_logits`` [B, 1, V] (audio: [B,
+    K, 1, V]), the wall seconds of ``prefill_s`` and ``decode_s`` (each
+    ending in a device synchronise) and, with ``keep_logits``, every
+    step's logits in ``logits``.
     """
     cfg = model.cfg
     dev = model.device
@@ -52,7 +58,7 @@ def generate(model: DecoderLM, prompt: torch.Tensor, new_tokens: int, context: i
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(prompt.shape[-1]):
-        nxt, logits, state = step(model, prompt[..., i:i + 1], state)
+        nxt, logits, state = step(model, prompt[..., i:i + 1], state, cond_embeds)
         if keep_logits:
             seen.append(logits)
     _sync(dev)
@@ -60,14 +66,14 @@ def generate(model: DecoderLM, prompt: torch.Tensor, new_tokens: int, context: i
     out = []
     t0 = time.perf_counter()
     for _ in range(new_tokens):
-        nxt, logits, state = step(model, nxt, state)
+        nxt, logits, state = step(model, nxt, state, cond_embeds)
         out.append(nxt)
         if keep_logits:
             seen.append(logits)
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return dict(
-        generated=torch.cat(out, dim=-1) if out else prompt[:, :0],
+        generated=torch.cat(out, dim=-1) if out else prompt[..., :0],
         state=state, last_logits=logits, logits=seen,
         prefill_s=prefill_s, decode_s=decode_s,
     )
@@ -88,8 +94,9 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4, prompt_len: int = 3
     model = init_model(cfg, seed=seed, device=dev)
     _sync(dev)
     init_s = time.perf_counter() - t0
-    prompt = make_batch(cfg, prompt_len, batch, device=dev)["tokens"]
-    res = generate(model, prompt, new_tokens, context)
+    data = make_batch(cfg, prompt_len, batch, device=dev)
+    res = generate(model, data["tokens"], new_tokens, context,
+                   cond_embeds=data.get("cond_embeds"))
     steps = max(new_tokens, 1)
     res["summary"] = {
         "arch": cfg.name,

@@ -1,6 +1,15 @@
-"""Model zoo of the port: configurations, layers and the decode path."""
+"""Model zoo of the port: configurations, layers, SSM and MoE blocks, the
+decode path and the full-sequence forward."""
 from .config import ModelConfig, MoEConfig, SSMConfig
-from .model import DecoderLM, decode_step, init_decode_state, init_model, prefill
+from .model import (
+    DecoderLM,
+    decode_step,
+    forward,
+    init_decode_state,
+    init_model,
+    prefill,
+    prefill_step,
+)
 
 __all__ = [
     "ModelConfig",
@@ -11,4 +20,6 @@ __all__ = [
     "init_decode_state",
     "decode_step",
     "prefill",
+    "prefill_step",
+    "forward",
 ]

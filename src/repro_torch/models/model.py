@@ -1,20 +1,41 @@
-"""Model assembly, decode half: dense attention decoders.
+"""Model assembly for every configuration of the JAX package.
 
-Counterpart of the decode half of the JAX package's ``models/model.py``.
-:class:`DecoderLM` holds the weights as ``nn.Module`` s named after the JAX
-tree (``embed.tok``, ``blocks.<l>.attn.wq``, ``blocks.<l>.post_norm1.scale``,
-``final_norm.scale``, …), one module per layer where JAX stacks layers on
-axis 0.  :func:`decode_step` runs one token per request through every
-layer with the MRB ring KV cache of :func:`init_decode_state`, which it
-updates in place; :func:`prefill` is sequential decode steps.
+Counterpart of the JAX package's ``models/model.py``.  :class:`DecoderLM`
+holds the weights as ``nn.Module`` s named after the JAX tree
+(``embed.tok``, ``blocks.<l>.attn.wq``, ``blocks.<l>.ssm.A_log``,
+``blocks.<l>.moe.router``, ``shared.fuse``, ``final_norm.scale``, …), one
+module per layer where JAX stacks layers on axis 0.  Every block has the
+structure of the first layer's kind, as the reference's vmapped init
+gives it:
 
-The full-sequence ``forward``/``prefill_step``/``attention_fwd_chunked``,
-MoE, SSM and hybrid blocks, cross-attention and image/audio inputs are not
-ported yet: a configuration that needs them makes :class:`DecoderLM` raise
-``NotImplementedError``.
+  * attention blocks: pre-norms, optional Gemma-2 post-norms, a
+    cross-attention (``norm_x`` + ``xattn``) where the config has
+    conditioning tokens, and ``moe`` in place of ``mlp`` for MoE configs;
+  * SSM blocks (``norm1`` + ``ssm``: Mamba2);
+  * Zamba2 hybrids: ``n_groups × every`` blocks, a ``tail`` of the
+    remaining layers, and one ``shared`` attention block whose parameters
+    are stored once and read by every invocation (the reference's
+    ``blocks[g][i]`` is layer ``g·every + i`` here, ``tail[j]`` layer
+    ``n_groups·every + j``).
+
+:func:`decode_step` runs one token per request through every layer with
+the MRB ring KV caches and SSM states of :func:`init_decode_state`, which
+it updates in place; every attention layer, the shared one included, goes
+through ``layers.attention_decode`` and so through the ring kernels.
+:func:`forward` is the full-sequence path (image prefix, conditioning,
+``(logits, aux)`` or the final hidden states), with the online-softmax
+:func:`attention_fwd_chunked` above ``CHUNKED_ATTN_THRESHOLD``;
+:func:`prefill_step` returns the last position's logits.
+``CHUNKED_ATTN_THRESHOLD``, ``ATTN_Q_BLOCK``, ``ATTN_K_BLOCK`` and
+``ATTN_UNROLL_Q`` are read at call time.
+
+Left out: the reference's ``constrain_activation`` and ``sharding_utils``
+calls are no-ops without a mesh and come with distribution (ROADMAP
+module item 11); ``cfg.remat`` is a training concern (item 10).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -27,52 +48,95 @@ from .layers import (
     Attention,
     Embed,
     Norm,
+    _param,
+    _rms,
+    apply_rope,
     attention_decode,
+    attention_fwd,
     embed_fwd,
+    init_cache,
     logits_fwd,
     mlp_fwd,
     norm_fwd,
+    softcap,
     torch_dtype,
 )
+from .moe import MoE, moe_fwd
+from .ssm import SSM, init_ssm_state, ssm_decode, ssm_fwd
 
-__all__ = ["DecoderLM", "init_model", "init_decode_state", "decode_step", "prefill",
-           "decode_windows"]
+__all__ = [
+    "DecoderLM",
+    "init_model",
+    "init_decode_state",
+    "decode_step",
+    "prefill",
+    "prefill_step",
+    "forward",
+    "attention_fwd_chunked",
+    "decode_windows",
+    "CHUNKED_ATTN_THRESHOLD",
+]
+
+CHUNKED_ATTN_THRESHOLD = 2048  # direct quadratic path below, chunked above
+ATTN_Q_BLOCK = 512
+ATTN_K_BLOCK = 1024
+# each q block visits only its causal prefix of k blocks (no upper triangle);
+# False visits every k block, masked, as the reference's uniform variant
+ATTN_UNROLL_Q = True
 
 DecodeState = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.moe:
-        return "MoE blocks (ROADMAP module item 9: models/moe.py)"
-    if "s" in cfg.layer_kinds() or cfg.ssm:
-        return "SSM blocks (ROADMAP module item 9: models/ssm.py)"
-    if cfg.shared_attn_every:
-        return "Zamba2 shared attention (ROADMAP module item 9: the hybrid branch)"
-    if cfg.n_cond_tokens:
-        return "cross-attention (ROADMAP module item 9: cross-attention)"
-    if cfg.n_img_tokens or cfg.n_codebooks:
-        return "image or audio inputs (ROADMAP module item 9: image and audio inputs)"
-    return None
-
-
 class Block(nn.Module):
-    """One dense attention block: pre-norms, optional Gemma-2 post-norms."""
+    """One decoder block of ``kind`` ('s' SSM, else attention)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
         self.norm1 = Norm(cfg, cfg.d_model, device)
+        self.attn = self.post_norm1 = self.post_norm2 = None
+        self.norm_x = self.xattn = self.norm2 = self.mlp = self.moe = self.ssm = None
+        if kind == "s":
+            self.ssm = SSM(cfg, device)
+            return
         self.attn = Attention(cfg, device=device)
         if cfg.post_block_norm:
             self.post_norm1 = Norm(cfg, cfg.d_model, device)
             self.post_norm2 = Norm(cfg, cfg.d_model, device)
-        else:
-            self.post_norm1 = self.post_norm2 = None
+        if cfg.n_cond_tokens:
+            self.norm_x = Norm(cfg, cfg.d_model, device)
+            self.xattn = Attention(cfg, cross=True, device=device)
         self.norm2 = Norm(cfg, cfg.d_model, device)
+        if cfg.moe:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device=device)
+
+
+class SharedBlock(nn.Module):
+    """Zamba2 shared attention block: ``fuse [2D, D]`` of concat(x, x0),
+    ``norm1``, ``attn``, ``norm2``, ``mlp``, ``out [D, D]``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D = cfg.d_model
+        dt = torch_dtype(cfg.dtype)
+        self.fuse = _param((2 * D, D), dt, device)
+        self.norm1 = Norm(cfg, D, device)
+        self.attn = Attention(cfg, device=device)
+        self.norm2 = Norm(cfg, D, device)
         self.mlp = MLP(cfg, device=device)
+        self.out = _param((D, D), dt, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: Optional[torch.Generator] = None) -> "SharedBlock":
+        D = self.out.shape[0]
+        self.fuse.normal_(0.0, 1.0 / math.sqrt(2 * D), generator=gen)
+        self.out.normal_(0.0, 1.0 / math.sqrt(D), generator=gen)
+        return self
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM with the JAX package's parameter tree.
+    """Decoder-only LM of any family with the JAX package's parameter tree.
 
     Constructed empty (``torch.empty``); :func:`init_model` fills it at
     random and :func:`repro_torch.bridge.params_from_jax` from a JAX tree.
@@ -80,12 +144,11 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        why = _unsupported(cfg)
-        if why:
-            raise NotImplementedError(f"{cfg.name}: the port does not run {why} yet")
         self.cfg = cfg
         self.embed = Embed(cfg, device)
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        kind = cfg.layer_kinds()[0]  # every layer has the first one's structure
+        self.blocks = nn.ModuleList(Block(cfg, kind, device) for _ in range(cfg.n_layers))
+        self.shared = SharedBlock(cfg, device) if cfg.shared_attn_every else None
         self.final_norm = Norm(cfg, cfg.d_model, device)
         self.windows = decode_windows(cfg)
 
@@ -103,70 +166,299 @@ def decode_windows(cfg: ModelConfig) -> List[int]:
     ]
 
 
+def _layer_windows(cfg: ModelConfig, L: int) -> List[int]:
+    """Per-layer attention window of the full-sequence path (L + 1 =
+    unlimited): the decode windows, with 0 read as L + 1."""
+    return [w if w else L + 1 for w in decode_windows(cfg)]
+
+
+def _groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_groups, layers in groups) of a hybrid: the tail is the rest."""
+    every = cfg.shared_attn_every
+    n_groups = cfg.n_layers // every
+    return n_groups, n_groups * every
+
+
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> DecoderLM:
     """Random weights with the JAX package's scales, drawn from a
     ``torch.Generator`` seeded with ``seed`` on the target device, directly
-    in ``cfg.dtype`` (matrices) and float32 (norm scales)."""
+    in ``cfg.dtype`` (matrices, SSM and MoE leaves) and float32 (norm
+    scales)."""
     dev = resolve_device(device)
     model = DecoderLM(cfg, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (Norm, Attention, MLP, Embed)):
+        if isinstance(m, (Norm, Attention, MLP, Embed, SSM, MoE, SharedBlock)):
             m.reset_parameters(gen)
     return model
 
 
+def _ring(n: int, cfg: ModelConfig, batch: int, capacity: int, dtype, device
+          ) -> Dict[str, torch.Tensor]:
+    one = init_cache(cfg, batch, capacity, dtype, device)
+    return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=device)
+            for k, v in one.items()}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, context: int, dtype=None,
                       device="cuda") -> DecodeState:
-    """Stacked MRB ring KV cache: ``k``/``v [n_layers, B, C, kv, d]`` in
-    ``dtype`` (default ``cfg.dtype``) and per-layer int32 ``omega``/``t``
-    ``[n_layers]``, all on the device.  Every layer has the same capacity,
-    the largest any layer needs (sliding window where bounded, else
-    ``context``); windows bound the local layers."""
-    why = _unsupported(cfg)
-    if why:
-        raise NotImplementedError(f"{cfg.name}: the port does not run {why} yet")
+    """Per-layer decode state on the device, stacked over layers:
+
+    * attention configs: ``layers`` = MRB ring KV cache ``k``/``v [L, B,
+      C, kv, d]`` in ``dtype`` (default ``cfg.dtype``) and int32
+      ``omega``/``t [L]``; every layer has the largest capacity any layer
+      needs (sliding window where bounded, else ``context``), windows
+      bound the local layers;
+    * SSM configs: ``layers`` = ``conv [L, B, d_conv - 1, conv_dim]`` and
+      ``ssm [L, B, nh, P, N]``, float32;
+    * hybrids also: ``shared``, one ring per shared invocation
+      (``n_layers // every``) of capacity ``min(context, sliding_window or
+      context)``."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype if dtype is None else dtype)
-    cap = max(min(context, w) if w else context for w in decode_windows(cfg))
-    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-    return {"layers": {
-        "k": torch.zeros((L, batch, cap, kv, hd), dtype=dt, device=dev),
-        "v": torch.zeros((L, batch, cap, kv, hd), dtype=dt, device=dev),
-        "omega": torch.zeros((L,), dtype=torch.int32, device=dev),
-        "t": torch.zeros((L,), dtype=torch.int32, device=dev),
-    }}
+    L = cfg.n_layers
+    if cfg.layer_kinds()[0] == "s":
+        one = init_ssm_state(cfg, batch, device=dev)
+        layers = {k: torch.zeros((L,) + tuple(v.shape), dtype=v.dtype, device=dev)
+                  for k, v in one.items()}
+    else:
+        cap = max(min(context, w) if w else context for w in decode_windows(cfg))
+        layers = _ring(L, cfg, batch, cap, dt, dev)
+    state: DecodeState = {"layers": layers}
+    if cfg.shared_attn_every:
+        w = cfg.sliding_window or context
+        state["shared"] = _ring(L // cfg.shared_attn_every, cfg, batch, min(context, w), dt, dev)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+def _at(bufs: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s views of a stacked state (updated in place)."""
+    return {name: buf[i] for name, buf in bufs.items()}
+
+
+def _block_step(blk: Block, cfg: ModelConfig, x: torch.Tensor, cache, window: int,
+                cond: Optional[torch.Tensor]) -> torch.Tensor:
+    h = norm_fwd(blk.norm1, x)
+    if blk.ssm is not None:
+        out, _ = ssm_decode(blk.ssm, cfg, h, cache)
+        return x + out
+    out, _ = attention_decode(blk.attn, cfg, h, cache, window)
+    if blk.post_norm1 is not None:
+        out = norm_fwd(blk.post_norm1, out)
+    x = x + out
+    if cond is not None and blk.xattn is not None:
+        hx = norm_fwd(blk.norm_x, x)
+        zero = torch.zeros((1, cond.shape[1]), dtype=torch.float32, device=x.device)
+        x = x + attention_fwd(blk.xattn, cfg, hx, None, zero, kv_src=cond)
+    h2 = norm_fwd(blk.norm2, x)
+    if blk.moe is not None:
+        out2, _ = moe_fwd(blk.moe, cfg, h2)  # the aux loss is not used in decode
+    else:
+        out2 = mlp_fwd(blk.mlp, cfg, h2)
+    if blk.post_norm2 is not None:
+        out2 = norm_fwd(blk.post_norm2, out2)
+    return x + out2
+
+
+def _shared_step(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor, x0: torch.Tensor,
+                 cache) -> torch.Tensor:
+    h = torch.cat([x, x0], dim=-1) @ p.fuse
+    a, _ = attention_decode(p.attn, cfg, norm_fwd(p.norm1, h), cache, cfg.sliding_window or 0)
+    h = h + a
+    h = h + mlp_fwd(p.mlp, cfg, norm_fwd(p.norm2, h))
+    return x + h @ p.out
 
 
 @torch.no_grad()
-def decode_step(model: DecoderLM, tokens: torch.Tensor, state: DecodeState
+def decode_step(model: DecoderLM, tokens: torch.Tensor, state: DecodeState, *,
+                cond_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
-    """One decode step.  tokens: [B, 1].  Returns (logits [B, 1, V] float32,
-    state), the state updated in place."""
+    """One decode step.  tokens: [B, 1] (or [B, K, 1] audio).  Returns
+    (logits [B, 1, V] / [B, K, 1, V] float32, state), the state updated in
+    place.  ``cond_embeds`` [B, Lc, D] feeds every cross-attention."""
     cfg = model.cfg
     x = embed_fwd(model.embed, cfg, tokens)
+    cond = cond_embeds.to(x.dtype) if cond_embeds is not None else None
     layers = state["layers"]
-    for l, (blk, window) in enumerate(zip(model.blocks, model.windows)):
-        cache = {name: buf[l] for name, buf in layers.items()}
-        out, _ = attention_decode(blk.attn, cfg, norm_fwd(blk.norm1, x), cache, window)
-        if blk.post_norm1 is not None:
-            out = norm_fwd(blk.post_norm1, out)
-        x = x + out
-        out2 = mlp_fwd(blk.mlp, cfg, norm_fwd(blk.norm2, x))
-        if blk.post_norm2 is not None:
-            out2 = norm_fwd(blk.post_norm2, out2)
-        x = x + out2
+    blocks, windows = model.blocks, model.windows
+    start = 0
+    if cfg.shared_attn_every:
+        x0 = x
+        n_groups, start = _groups(cfg)
+        every = cfg.shared_attn_every
+        for g in range(n_groups):
+            x = _shared_step(model.shared, cfg, x, x0, _at(state["shared"], g))
+            for l in range(g * every, (g + 1) * every):
+                x = _block_step(blocks[l], cfg, x, _at(layers, l), windows[l], cond)
+    for l in range(start, cfg.n_layers):  # every layer, or a hybrid's tail
+        x = _block_step(blocks[l], cfg, x, _at(layers, l), windows[l], cond)
     x = norm_fwd(model.final_norm, x)
     return logits_fwd(model.embed, cfg, x), state
 
 
-def prefill(model: DecoderLM, tokens: torch.Tensor, context: int
-            ) -> Tuple[torch.Tensor, DecodeState]:
+def prefill(model: DecoderLM, tokens: torch.Tensor, context: int, *,
+            cond_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, DecodeState]:
     """Sequential prefill via decode steps (the reference implementation the
-    equivalence tests use).  Returns (last logits [B, 1, V], state)."""
+    equivalence tests use).  Returns (last logits, state)."""
     state = init_decode_state(model.cfg, tokens.shape[0], context, device=model.device)
     logits = None
     for i in range(tokens.shape[-1]):
-        logits, state = decode_step(model, tokens[..., i:i + 1], state)
+        logits, state = decode_step(model, tokens[..., i:i + 1], state, cond_embeds=cond_embeds)
     return logits, state
+
+
+# ---------------------------------------------------------------------------
+# full sequence
+# ---------------------------------------------------------------------------
+def attention_fwd_chunked(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                          positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Causal (optionally sliding-window) self-attention with O(L·K_block)
+    memory: online softmax over k blocks of ``ATTN_K_BLOCK`` for each q
+    block of ``ATTN_Q_BLOCK``, accumulated in float32, each q block's output
+    cast to ``x.dtype``.  ``window`` ≥ L disables the window.  Raises where
+    L is not a multiple of both block sizes."""
+    B, L, _ = x.shape
+    QB, KB = ATTN_Q_BLOCK, ATTN_K_BLOCK
+    if L % QB or L % KB:
+        raise ValueError(f"chunked attention: L={L} must be a multiple of the q block {QB} "
+                         f"and the k block {KB}")
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    g = h // kv
+    q = (x @ p.wq).reshape(B, L, h, hd)
+    k = (x @ p.wk).reshape(B, L, kv, hd)
+    v = (x @ p.wv).reshape(B, L, kv, hd)
+    if p.q_norm is not None:
+        q = _rms(q, p.q_norm)
+        k = _rms(k, p.k_norm)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = L // QB, L // KB
+    qb = q.reshape(B, nq, QB, kv, g, hd)
+    kb = k.reshape(B, nk, KB, kv, hd)
+    vb = v.reshape(B, nk, KB, kv, hd)
+    dev = x.device
+
+    outs = []
+    for qi in range(nq):
+        q_i = qb[:, qi].float()
+        q_pos = qi * QB + torch.arange(QB, device=dev)
+        hi = (qi * QB + QB - 1) // KB + 1 if ATTN_UNROLL_Q else nk
+        m = torch.full((B, kv, g, QB), -1e30, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, kv, g, QB), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, kv, g, QB, hd), dtype=torch.float32, device=dev)
+        for kj in range(hi):
+            k_j, v_j = kb[:, kj], vb[:, kj]
+            k_pos = kj * KB + torch.arange(KB, device=dev)
+            s = torch.einsum("bqkgd,bmkd->bkgqm", q_i, k_j.float()) * scale
+            s = softcap(s, cfg.attn_softcap)
+            ok = (k_pos[None, :] <= q_pos[:, None]) & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(ok, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(s - m_new[..., None])
+            l = l * alpha + pexp.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqm,bmkd->bkgqd", pexp.to(v_j.dtype), v_j).float()
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype))  # [B,kv,g,QB,hd]
+    out = torch.stack(outs, dim=3).reshape(B, h, L, hd)                       # [B,kv,g,nq,QB,hd]
+    out = out.transpose(1, 2).reshape(B, L, h * hd)
+    return out @ p.wo
+
+
+def _self_attention(p: Attention, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+                    window: int) -> torch.Tensor:
+    L = h.shape[1]
+    if L > CHUNKED_ATTN_THRESHOLD:
+        return attention_fwd_chunked(p, cfg, h, positions, window)
+    i, j = positions[:, None], positions[None, :]
+    mask = torch.where((j <= i) & ((i - j) < window), 0.0, -1e30).to(torch.float32)
+    return attention_fwd(p, cfg, h, positions, mask)
+
+
+def _block_fwd(blk: Block, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+               window: int, cond: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block.  Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = norm_fwd(blk.norm1, x)
+    if blk.ssm is not None:
+        return x + ssm_fwd(blk.ssm, cfg, h), aux
+    out = _self_attention(blk.attn, cfg, h, positions, window)
+    if blk.post_norm1 is not None:
+        out = norm_fwd(blk.post_norm1, out)
+    x = x + out
+    if cond is not None and blk.xattn is not None:
+        hx = norm_fwd(blk.norm_x, x)
+        zero = torch.zeros((x.shape[1], cond.shape[1]), dtype=torch.float32, device=x.device)
+        x = x + attention_fwd(blk.xattn, cfg, hx, positions, zero, kv_src=cond)
+    h2 = norm_fwd(blk.norm2, x)
+    if blk.moe is not None:
+        out2, aux = moe_fwd(blk.moe, cfg, h2)
+    else:
+        out2 = mlp_fwd(blk.mlp, cfg, h2)
+    if blk.post_norm2 is not None:
+        out2 = norm_fwd(blk.post_norm2, out2)
+    return x + out2, aux
+
+
+def _shared_block_fwd(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor, x0: torch.Tensor,
+                      positions: torch.Tensor, window: int) -> torch.Tensor:
+    h = torch.cat([x, x0], dim=-1) @ p.fuse
+    h = h + _self_attention(p.attn, cfg, norm_fwd(p.norm1, h), positions, window)
+    h = h + mlp_fwd(p.mlp, cfg, norm_fwd(p.norm2, h))
+    return x + h @ p.out
+
+
+def forward(model: DecoderLM, tokens: torch.Tensor, *,
+            img_embeds: Optional[torch.Tensor] = None,
+            cond_embeds: Optional[torch.Tensor] = None,
+            return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  tokens: [B, L] (or [B, K, L] audio);
+    ``img_embeds`` [B, n_img, D] are prepended, ``cond_embeds`` [B, Lc, D]
+    feed every cross-attention.  Returns (logits [B, L, V] / [B, K, L, V]
+    float32, aux_loss) — or the final normed hidden states in place of the
+    logits with ``return_hidden``."""
+    cfg = model.cfg
+    x = embed_fwd(model.embed, cfg, tokens)
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+    L = x.shape[1]
+    positions = torch.arange(L, device=x.device)
+    windows = _layer_windows(cfg, L)
+    cond = cond_embeds.to(x.dtype) if cond_embeds is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    start = 0
+    if cfg.shared_attn_every:
+        x0 = x
+        n_groups, start = _groups(cfg)
+        every = cfg.shared_attn_every
+        shared_win = min(cfg.sliding_window, L + 1) if cfg.sliding_window else L + 1
+        for g in range(n_groups):
+            x = _shared_block_fwd(model.shared, cfg, x, x0, positions, shared_win)
+            for l in range(g * every, (g + 1) * every):
+                x, a = _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
+                aux = aux + a
+    for l in range(start, cfg.n_layers):  # every layer, or a hybrid's tail
+        x, a = _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
+        aux = aux + a
+    x = norm_fwd(model.final_norm, x)
+    if return_hidden:
+        return x, aux
+    return logits_fwd(model.embed, cfg, x), aux
+
+
+@torch.inference_mode()
+def prefill_step(model: DecoderLM, tokens: torch.Tensor, *,
+                 img_embeds: Optional[torch.Tensor] = None,
+                 cond_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Production prefill: the full forward, then the next-token logits of
+    the last position only ([B, 1, V] / [B, K, 1, V])."""
+    hidden, _ = forward(model, tokens, img_embeds=img_embeds, cond_embeds=cond_embeds,
+                        return_hidden=True)
+    return logits_fwd(model.embed, model.cfg, hidden[:, -1:, :])

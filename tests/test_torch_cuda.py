@@ -9,10 +9,12 @@ then holds the one-line start-up failure.  Run on the card with
 The cases are those of ``chip_smoke.py``: ``sim_step``'s kernel-vs-plain
 phase at its 32 distinct decodes, the large tier's widest scenarios and
 ILP-decoded Sobel schedules against the event simulator, a served cell
-and an extracted LM graph's plan schedules through the kernel, and the ring
+and an extracted LM graph's plan schedules through the kernel, the ring
 kernels' sweeps (exact for ``mrb_append`` and the fused ``mrb_append_kv``,
 ω included; 3e-5 float32 and 2e-2 bfloat16 for ``mrb_decode_attention``,
-also at ``t = -1``, where the answer is the mean of V).  This file imports
+also at ``t = -1``, where the answer is the mean of V, and at every model
+family's attention shape), and each model family's smoke configuration
+served on the card against the CPU.  This file imports
 no JAX: the card's host has none.
 """
 import os
@@ -401,6 +403,23 @@ def test_serving_on_the_card_matches_the_cpu(device):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert out["tokens_identical"]
+
+
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_SMOKE)
+def test_family_serving_on_the_card_matches_the_cpu(device, arch):
+    """Each family this slice adds, at its smoke width with every ring
+    wrapping (Zamba2's window cut to 32): kernels on the card, plain
+    versions on the CPU, the same greedy tokens and logits within 1e-4 at
+    every step (TF32 off); ``forward`` and ``prefill_step`` on the chunked
+    path within 1e-4."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = chip_smoke.family_card_vs_cpu(arch, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out["tokens_identical"]
+    assert out["launches"]["mrb_decode_attention"] == out["ring_layers"] * out["steps"]
 
 
 # ------------------------------------------------- the device explorer (evo)

@@ -291,14 +291,85 @@ def test_init_model_has_the_jax_tree(arch):
     assert abs(float(model.embed.tok.std()) / 0.02 - 1) < 0.1
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m", "zamba2-7b", "musicgen-medium",
-                                  "internvl2-2b", "qwen3-moe-235b-a22b"])
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get_config(arch).smoke
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_model(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_decode_state(cfg, 1, 8, device=CPU)
+def _stacked(cfg, key):
+    every = cfg.shared_attn_every
+    if key.startswith("blocks."):
+        return (cfg.n_layers // every, every) if every else (cfg.n_layers,)
+    if key.startswith("tail."):
+        return (cfg.n_layers % every,)
+    return ()
+
+
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_every_family_builds_and_bridges(arch):
+    """Every configuration builds, in float32 and bfloat16: the port's
+    ``init_model`` has the JAX tree (each parameter at its JAX key through
+    the bridge's layer mapping: ``blocks[l]``, or a hybrid's
+    ``blocks[l // every][l % every]`` and ``tail[j]``; every stacked slot
+    covered once; shapes; dtypes, block norms float32 where the bfloat16
+    tree holds them in bfloat16) and exactly ``param_count()`` parameters;
+    new leaves at the JAX scales; and a float32 JAX tree with distinct
+    values in every leaf bridges onto the right layers."""
+    import repro_torch.bridge as bridge
+
+    for dtype in ("float32", "bfloat16"):
+        jcfg, tcfg = smoke(arch, dtype=dtype)
+        jtree = jax.eval_shape(lambda: JM.init_model(RNG, jcfg))
+        flat = {".".join(p.key for p in path): leaf
+                for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]}
+        model = TM.init_model(tcfg, seed=3, device=CPU)
+        assert sum(t.numel() for t in model.parameters()) == tcfg.param_count()
+        assert all(not t.requires_grad for t in model.parameters())
+        slots = {}
+        for name, t in model.named_parameters():
+            key, index = bridge._jax_key(tcfg, name)
+            leaf = flat[key]
+            stack = _stacked(tcfg, key)
+            assert leaf.shape == stack + tuple(t.shape), name
+            assert len(index) == len(stack) and all(0 <= i < n for i, n in zip(index, stack))
+            if bridge._is_norm_param(name) and dtype == "bfloat16":
+                assert t.dtype == torch.float32 and leaf.dtype == jnp.bfloat16, name
+            else:
+                assert str(t.dtype)[6:] == str(leaf.dtype), name
+            slots.setdefault(key, set()).add(index)
+        assert set(slots) == set(flat)
+        for key, seen in slots.items():
+            assert len(seen) == int(np.prod(_stacked(tcfg, key))), key
+
+    # JAX scales of the leaves this slice adds (float32 model of the last loop)
+    jcfg, tcfg = smoke(arch)
+    model = TM.init_model(tcfg, seed=3, device=CPU)
+    D, blk = tcfg.d_model, model.blocks[-1]
+    if blk.ssm is not None:
+        p = blk.ssm
+        nh = tcfg.ssm_heads
+        np.testing.assert_allclose(p.A_log.numpy(), np.log(np.linspace(1, 16, nh)), rtol=1e-6)
+        assert torch.all(p.D_skip == 1) and torch.all(p.norm == 1) and torch.all(p.conv_b == 0)
+        np.testing.assert_allclose(p.dt_bias.numpy(), np.log(np.e - 1), rtol=1e-6)
+        assert abs(float(p.conv_w.std()) / 0.2 - 1) < 0.1
+        assert abs(float(p.in_proj.std()) * D ** 0.5 - 1) < 0.1
+        assert abs(float(p.out_proj.std()) * tcfg.d_inner ** 0.5 - 1) < 0.1
+    if blk.moe is not None:
+        assert abs(float(blk.moe.router.std()) * D ** 0.5 - 1) < 0.1
+        assert abs(float(blk.moe.wo.std()) * tcfg.moe.d_ff ** 0.5 - 1) < 0.1
+    if model.shared is not None:
+        assert abs(float(model.shared.fuse.std()) * (2 * D) ** 0.5 - 1) < 0.1
+        assert abs(float(model.shared.out.std()) * D ** 0.5 - 1) < 0.1
+    if tcfg.n_cond_tokens:
+        assert blk.xattn.q_norm is None and torch.all(blk.norm_x.scale == 1)
+    assert sum(b.moe is not None for b in model.blocks) == (tcfg.n_layers if tcfg.moe else 0)
+
+    # a tree with distinct values lands on the right layers
+    jtree = jax.eval_shape(lambda: JM.init_model(RNG, jcfg))
+    rng = np.random.default_rng(0)
+    tree = jax.tree_util.tree_map(
+        lambda l: rng.standard_normal(l.shape).astype(np.float32), jtree)
+    bridged = params_from_jax(tcfg, tree, device=CPU)
+    flat = {".".join(p.key for p in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    for name, t in bridged.named_parameters():
+        key, index = bridge._jax_key(tcfg, name)
+        np.testing.assert_array_equal(t.numpy(), flat[key][index])
 
 
 def test_bridge_rejects_a_mismatched_tree(bridged):
