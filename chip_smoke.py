@@ -73,13 +73,17 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
 10. the device explorer ``torch_nsga2``: (a) the relaxed evaluation on the
     card (its ``sim_step`` launched once per call on tables the decode
     wrote on the device) equal to the same function on CPU tensors, for
-    Multicamera ξ=1 and ξ=0 at B=256 (8 seeded gene rows tiled, K=16) and
+    Multicamera ξ=1 at the main path's shapes (B=25 and B=100, K=32) and
     for a population whose event times wrap int32 (inf where the plain
     program wraps); (b) the main path of phase 3 through ``torch_nsga2``
     relaxed: per-generation wall, time to the end of the first generation
     (cold), ``relaxed_evaluations``, ``sim_step`` launches and their
-    CUDA-event ms, archive periods re-checked with the event-driven
-    simulator, relHV against phase 3's host front (≥ 0.25); (c)
+    CUDA-event ms, the first B=100 (on its first 25 rows) and the first
+    B=25 relaxed launch held against the plain program on their own
+    tables (on the CPU in a spawned process, joined and asserted after
+    phase 15), archive periods
+    re-checked with the event-driven simulator, relHV against phase 3's
+    host front (≥ 0.25); (c)
     ``BENCH_evo.json``'s shape (Sobel Reference, population 512, offspring
     256, 5 generations, seed 11): the host ``nsga2`` against ``torch_nsga2``
     relaxed, warm seconds per generation and relHV (≥ 0.25); (b)'s relaxed
@@ -126,8 +130,8 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     recording on, ``trace export --min-cats 4`` (``sim.execute`` carrying
     ``backend="cuda"``) and the ``trace summary`` table; (f) the
     ``auto`` backend's crossover: wall ms of one ξ=1 group at B = 1, 2,
-    4, 8, 16 through the event simulator and through the kernel, at
-    Sobel and Multicamera, and the least B at which the kernel is no
+    4, 8, 16 through the event simulator and through the kernel (one run
+    each), at Sobel and Multicamera, and the least B at which the kernel is no
     slower (``AUTO_MIN_BATCH`` is set from it).
 13. the campaign service, chaos sweeps and the planning layer on the card:
     (a) ``python -m repro_torch campaign serve --device cuda --workers 2``
@@ -180,6 +184,23 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     (L=128, blocks lowered to 32/64 rows so the chunked path runs) within
     1e-4.  Qwen3-MoE-235B (470 GB in bfloat16) is not served at full width:
     its attention shape is held in phase 6 and its smoke config in (d).
+15. training on the card, no kernel of the repository on its path (each
+    path's launch counts reset before it and read after it: 0 each): (a)
+    Qwen3-0.6B at full width and depth (28 layers, d=1024, V=151,936,
+    tied embeddings, AdamW, remat), bfloat16 random weights from seed 0,
+    ``run_training`` at seq 1024 and global batch 8 for 8 steps, then
+    again with a checkpoint every 4 steps and a failure injected at step
+    5: every loss finite, the last below the first, the resumed run's
+    final loss equal to the straight run's within 1e-6 relative; warm s
+    per step, tokens/s, the model FLOPs' share of the bf16 peak, peak GB,
+    checkpoint write and restore s, the optimizer's ms per step (CUDA
+    events), launches per step and the device's busy share (torch.profiler
+    over 2 steps); (b) Mamba2-370M at full width (the chunked SSD's
+    backward), 4 steps at seq 1024, batch 4: losses finite and falling;
+    (c) the ten smoke configurations, card against CPU in float32 (TF32
+    off), 3 steps each with the spec's optimizer (Adafactor for Qwen3-MoE
+    and Nemotron), Nemotron's bf16 gradients over 2 microbatches and
+    Gemma-2's gather CE: loss and ``grad_norm`` within 1e-4 at every step.
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -188,9 +209,11 @@ result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import math
+import multiprocessing
 import os
 import random
 import re
@@ -1088,6 +1111,7 @@ EVO_MAIN_IDENTITY = dict(distinct=MAIN_PATH["offspring"],
                          Bs=(MAIN_PATH["offspring"], MAIN_PATH["population"]))
 EVO_BENCH = dict(population=512, offspring=256, generations=5, seed=11)  # BENCH_evo.json
 RELHV_GATE = 0.25                                  # tests/test_torch_evo.py's gate
+PLAIN_JOB_THREADS = 2      # the spawned plain re-check's share of the card host's 8 cores
 
 
 def relaxed_identity(g, xi, device, objectives=EVO_OBJECTIVES, distinct=EVO_IDENTITY["distinct"],
@@ -1149,14 +1173,11 @@ def relaxed_identity(g, xi, device, objectives=EVO_OBJECTIVES, distinct=EVO_IDEN
     return max(errs), cards, times
 
 
-def plain_on_cpu(tabs, K, k_max, ports, stats=None):
-    """The plain program on a CPU copy of the card's tables ``tabs`` (one
-    ξ pattern: the same graph-derived tensors), run as one batch of all
-    their phenotypes: ``(fire, dead, horizon)`` per table; a ``stats``
-    dict receives ``rounds``, one tensor per table."""
+def merged_on_cpu(tabs):
+    """One CPU table of all of ``tabs``' phenotypes (one ξ pattern: the
+    same graph-derived tensors, which it checks) and the tables' sizes."""
     import dataclasses
     import torch
-    from repro_torch.sim.batched import simulate_plain
 
     per_phenotype = ("dur", "route", "core", "gamma")
     shared = [f.name for f in dataclasses.fields(tabs[0])
@@ -1167,11 +1188,32 @@ def plain_on_cpu(tabs, K, k_max, ports, stats=None):
     cpu = dataclasses.replace(
         tabs[0], **{f: getattr(tabs[0], f).cpu() for f in shared},
         **{f: torch.cat([getattr(t, f) for t in tabs]).cpu() for f in per_phenotype})
-    sizes = [t.B for t in tabs]
+    return cpu, [t.B for t in tabs]
+
+
+def plain_job(cpu, sizes, K, k_max, ports, threads):
+    """The plain program on the merged CPU table ``cpu`` at ``threads``
+    intra-op threads, as one batch (its rows are independent): ``(fire,
+    dead, horizon)`` and the round counts per table of ``sizes``, and the
+    seconds it took.  Runs in a spawned process beside the card's phases."""
+    import torch
+    from repro_torch.sim.batched import simulate_plain
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    stats = {}
     outs = simulate_plain(cpu, K, k_max, ports, stats=stats)
-    if stats is not None:
-        stats["rounds"] = stats["rounds"].split(sizes)
-    return list(zip(*(out.split(sizes) for out in outs)))
+    return (list(zip(*(out.split(sizes) for out in outs))), stats["rounds"].split(sizes),
+            time.perf_counter() - t0)
+
+
+def first_rows(tab, n):
+    """``tab`` cut to its first ``n`` phenotypes (the per-phenotype tables;
+    the graph-derived ones shared)."""
+    import dataclasses
+
+    return dataclasses.replace(tab, **{f: getattr(tab, f)[:n]
+                                       for f in ("dur", "route", "core", "gamma")})
 
 
 def huge_graph():
@@ -1277,12 +1319,12 @@ def relaxed_generation_parts(device, graph, strategy, objectives, population, of
 
 
 def phase_device_explorer(device, host_front):
-    """Phase 10: (a) card-vs-CPU relaxed-eval identity on Multicamera ξ=0/1,
+    """Phase 10: (a) card-vs-CPU relaxed-eval identity on Multicamera ξ=1
     at the main path's own shapes, and on a population whose event times
-    wrap; (b) ``torch_nsga2`` relaxed on the main path, every relaxed
-    ``sim_step`` launch of the run held against the plain program on its
-    own tables; (c) the BENCH_evo.json shape, host ``nsga2`` against
-    ``torch_nsga2`` relaxed."""
+    wrap; (b) ``torch_nsga2`` relaxed on the main path, one relaxed
+    ``sim_step`` launch of each shape handed to a spawned plain re-check
+    (``out["launch_checks"]``, for :func:`finish_launch_checks`); (c) the
+    BENCH_evo.json shape, host ``nsga2`` against ``torch_nsga2`` relaxed."""
     import inspect
     import torch
     from repro_torch.core import (ExplorationProblem, NSGA2Explorer, multicamera,
@@ -1292,14 +1334,8 @@ def phase_device_explorer(device, host_front):
     from repro_torch.sim import simulate_period
 
     out = dict(identity=[])
-    for xi in (1, 0):
-        t0 = time.perf_counter()
-        err, cards, ms = relaxed_identity(multicamera(), xi, device)
-        out["identity"].append(dict(case=f"multicamera_xi{xi}", B=cards[0].shape[0],
-                                    K=EVO_IDENTITY["K"], max_abs_err=err, card_ms=ms[0],
-                                    inf_rows=int(torch.isinf(cards[0]).any(1).sum()),
-                                    seconds=time.perf_counter() - t0))
-        log("phase device-explorer: identity", json.dumps(out["identity"][-1]))
+    # (the B=256 identity at K=16 is held by tests/test_torch_cuda.py, and
+    # sim_step at B=256 by phase 2)
     k_main = inspect.signature(TorchNSGA2Explorer).parameters["sim_iters"].default
     t0 = time.perf_counter()
     err, cards, ms = relaxed_identity(multicamera(), 1, device, EVO_MAIN_OBJECTIVES, K=k_main,
@@ -1360,32 +1396,26 @@ def phase_device_explorer(device, host_front):
     ports = {args[3] for args, _, _ in relaxed}
     assert all(not kwargs and args[1] == args[2] == k_main for args, kwargs, _ in relaxed) \
         and len(ports) == 1, [(args[1:], kwargs) for args, kwargs, _ in relaxed]
-    t0 = time.perf_counter()
-    plain_stats = {}
-    plain = plain_on_cpu([args[0] for args, _, _ in relaxed], k_main, k_main, ports.pop(),
-                         stats=plain_stats)
-    plain_s = time.perf_counter() - t0
-    launch_checks = []
-    for (args, _, card), (pf, pd, ph), rounds, ms in zip(relaxed, plain, plain_stats["rounds"],
-                                                          kernel_ms):
-        tab = args[0]
-        kf, kd, kh = (x.cpu() for x in card)
-        err = max(int((kf.long() - pf.long()).abs().max()),
-                  int((kh.long() - ph.long()).abs().max()),
-                  int((kd.long() - pd.long()).abs().max()))
-        assert torch.equal(kf, pf) and torch.equal(kd, pd) and torch.equal(kh, ph), \
-            f"main-path sim_step launch at B={tab.B} differs from the plain version by {err}"
-        # the bound by rounds at the relaxed launch shape: the plain
-        # program's round counts equal the kernel's (phase 2)
-        rounds_max = int(rounds.max())
-        launch_checks.append(dict(B=tab.B, A=tab.A, Tmax=tab.Tmax, K=k_main, max_abs_err=err,
-                                  dead=int(kd.sum()), ms=ms, rounds_max=rounds_max,
-                                  rounds_bound_ms=rounds_max * round_floor_ms(
-                                      plan_of(tab)["threads"], device)))
-    assert [c["B"] for c in launch_checks] == (
+    assert [args[0].B for args, _, _ in relaxed] == (
         [MAIN_PATH["population"]] + [MAIN_PATH["offspring"]] * MAIN_PATH["generations"])
-    log("phase device-explorer: main-path launches against the plain version",
-        json.dumps(dict(launches=launch_checks, plain_s=plain_s)))
+    # one launch of each shape (B=100, then the first B=25) held against the
+    # plain program, the B=100 launch on its first 25 rows (the program's
+    # rows are independent); the other B=25 launches differ only in their rows
+    relaxed = relaxed[:2]
+    rows = MAIN_PATH["offspring"]
+    cpu, sizes = merged_on_cpu([first_rows(args[0], rows) for args, _, _ in relaxed])
+    launch_checks = dict(
+        rows=rows, K=k_main,
+        card=[[x[:rows].cpu() for x in card] for _, _, card in relaxed],
+        launches=[dict(B=args[0].B, A=args[0].A, Tmax=args[0].Tmax, ms=ms,
+                       round_floor_ms=round_floor_ms(plan_of(args[0])["threads"], device))
+                  for (args, _, _), ms in zip(relaxed, kernel_ms)],
+        # the CPU half of the check runs in a spawned process while the
+        # card goes on with the next phases; main() joins it at the end
+        pool=concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")))
+    launch_checks["job"] = launch_checks["pool"].submit(
+        plain_job, cpu, sizes, k_main, k_main, ports.pop(), PLAIN_JOB_THREADS)
     front = run.front
     assert front and all(len(p) == 3 and all(math.isfinite(v) for v in p) for p in front)
     for ind in run.archive[:4]:
@@ -1402,7 +1432,6 @@ def phase_device_explorer(device, host_front):
         wall_s=run.wall_s, front=len(front), relhv_vs_nsga2=relhv,
         relaxed_kernel_ms=kernel_ms[:relaxed_launches],
         engine_kernel_ms=kernel_ms[relaxed_launches:],
-        launch_checks=launch_checks, launch_checks_plain_s=plain_s,
     )
     log("phase device-explorer: main path", json.dumps(out["main_path"]))
     out["main_path_parts"] = relaxed_generation_parts(
@@ -1437,9 +1466,39 @@ def phase_device_explorer(device, host_front):
         EVO_BENCH["offspring"])
     log("phase device-explorer: BENCH_evo shape, a warm generation's parts",
         json.dumps(out["bench_evo_parts"]))
-    out["max_abs_err"] = max([row["max_abs_err"] for row in out["identity"]]
-                             + [c["max_abs_err"] for c in launch_checks])
+    out["max_abs_err"] = max(row["max_abs_err"] for row in out["identity"])
+    out["launch_checks"] = launch_checks
     return out
+
+
+def finish_launch_checks(checks):
+    """Phase 10 (b)'s relaxed launches against the plain program: joins the
+    spawned job and asserts the kernel's outputs equal to the plain
+    program's on the same tables; returns the rows, each with its bound by
+    rounds (the plain program's round counts, equal to the kernel's in
+    phase 2, over the rows checked)."""
+    import torch
+
+    try:
+        plain, rounds, plain_s = checks["job"].result()
+    finally:
+        checks["pool"].shutdown()
+    rows = []
+    for row, card, (pf, pd, ph), r in zip(checks["launches"], checks["card"], plain, rounds):
+        kf, kd, kh = card
+        err = max(int((kf.long() - pf.long()).abs().max()),
+                  int((kh.long() - ph.long()).abs().max()),
+                  int((kd.long() - pd.long()).abs().max()))
+        assert torch.equal(kf, pf) and torch.equal(kd, pd) and torch.equal(kh, ph), \
+            f"main-path sim_step launch at B={row['B']} differs from the plain version by {err}"
+        rounds_max = int(r.max())
+        floor_ms = row.pop("round_floor_ms")
+        rows.append(dict(row, rows_checked=checks["rows"], K=checks["K"], max_abs_err=err,
+                         dead=int(kd.sum()), rounds_max=rounds_max,
+                         rounds_bound_ms=rounds_max * floor_ms))
+    log("phase device-explorer: main-path launches against the plain version",
+        json.dumps(dict(launches=rows, plain_s=plain_s, threads=PLAIN_JOB_THREADS)))
+    return rows
 
 
 # ------------------------------------------- exact decoders and scenarios
@@ -1786,7 +1845,7 @@ def check_archive(cell, art, device, limit):
     return checked
 
 
-def crossover(device, reps=2):
+def crossover(device, reps=1):
     """Phase 12 (f): wall ms of one ξ=1 group of B phenotypes through the
     event simulator (one run each) and through the kernel
     (``batch_simulate``, lowering included), min of ``reps``; the crossing
@@ -2028,9 +2087,9 @@ def phase_campaign(device):
 SERVED_APPS = ("Sobel", "Sobel4")
 SERVED_TENANTS = ("alice", "bob")
 # (c): `chaos run` plans on the card; the JAX package's default is 20, cut
-# so that the sweep takes about 90 s (each injected crash respawns a
+# to one plan, about 45 s (each injected crash respawns a
 # worker, which pays an interpreter and a torch import).
-CHAOS_PLANS = 2
+CHAOS_PLANS = 1
 # (d): benchmarks/dataflow_plans.py's settings, without its 60 s wall budget
 # (the fronts would depend on the clock).
 DATAFLOW_MODELS = (("musicgen-medium", 8), ("zamba2-7b", 8), ("mixtral-8x7b", 4))
@@ -2673,6 +2732,224 @@ def phase_families(device):
     return out
 
 
+# ------------------------------------------------------------------ training
+# Phase 15 (a): Qwen3-0.6B at full width and depth (configs/qwen3_0_6b.py,
+# hf Qwen/Qwen3-0.6B: 28 layers, d=1024, V=151,936, tied embeddings, its
+# spec's AdamW, remat on), bf16 random weights from seed 0, seq 1024,
+# global batch 8, 8 steps; then the same run with a checkpoint every 4
+# steps and a failure injected at step 5.  (b) Mamba2-370M at full width.
+# (c) every smoke configuration card = CPU in float32 (TF32 off), its
+# spec's optimizer (Adafactor for Qwen3-MoE and Nemotron), Nemotron with
+# bf16 gradients over 2 microbatches, Gemma-2 with the gather CE.
+# The tokens are the reference's uniform synthetic stream, so a few steps
+# can only shrink the loss's excess over ln V, against a batch-to-batch
+# spread of about 0.01: the learning rates are high enough for the fall to
+# clear that spread within the steps run, and low enough not to diverge.
+TRAIN_FULL = dict(steps=8, seq_len=1024, global_batch=8, peak_lr=1e-3, warmup=6, seed=0)
+TRAIN_RESUME = dict(ckpt_every=4, inject_failure_at=5)
+TRAIN_MAMBA = dict(steps=4, seq_len=1024, global_batch=4, peak_lr=5e-3, warmup=1, seed=0)
+TRAIN_SMOKE = dict(steps=3, seq_len=64, batch=4, peak_lr=1e-3, warmup=2,
+                   gather_arch="gemma2-9b")
+TRAIN_RTOL = 1e-4           # (c): loss and grad_norm, card against CPU, every step
+RESUME_RTOL = 1e-6          # (a): tests/test_substrate.py::test_resume_is_bit_deterministic
+
+
+def train_flops(cfg, seq_len, batch):
+    """Model FLOPs of one training step: 6 × parameters × tokens, plus the
+    attention products (QK and PV, forward and backward, every position
+    pair: 12 × B × S² × heads × head_dim per attention layer); remat's
+    recomputation not counted."""
+    attn_layers = sum(k != "s" for k in cfg.layer_kinds())
+    attn = 12 * batch * seq_len ** 2 * cfg.n_heads * cfg.resolved_head_dim * attn_layers
+    return 6 * cfg.param_count() * seq_len * batch + attn
+
+
+def profile_train_steps(step_fn, state, batch, steps=2):
+    """Launches per step and the device's busy share over ``steps`` warm
+    training steps (torch.profiler; None where it saw no kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return dict(launches_per_step=None, busy_share=None)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(launches_per_step=len(kernels) / steps, busy_share=busy_us / wall_us,
+                device_ms_per_step=busy_us / 1e3 / steps,
+                top_kernels_ms_per_step={name[:80]: ms for name, ms in top})
+
+
+def train_full_width(device):
+    """(a): the straight and the resumed run through ``run_training``, then
+    the step's parts on a fresh state: the optimizer's ms per step (CUDA
+    events), peak GB, launches per step and busy share."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.runtime import TrainLoopConfig, init_train_state, make_train_step, \
+        run_training
+
+    spec = get_config("qwen3-0.6b")
+    cfg = spec.model
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    loop = dict(TRAIN_FULL, optimizer=spec.optimizer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    straight = run_training(cfg, TrainLoopConfig(**loop), device=device)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        reset_counts()
+        resumed = run_training(cfg, TrainLoopConfig(ckpt_dir=d, **loop, **TRAIN_RESUME),
+                               device=device)
+        counts_resumed = read_counts()
+    losses = straight.losses
+    assert all(math.isfinite(x) for x in losses + resumed.losses), (losses, resumed.losses)
+    assert losses[-1] < losses[0], f"Qwen3-0.6B loss did not fall: {losses}"
+    assert resumed.restarts == 1 and resumed.steps_done == TRAIN_FULL["steps"]
+    rel = abs(resumed.final_loss - straight.final_loss) / abs(straight.final_loss)
+    assert rel <= RESUME_RTOL, \
+        f"resumed run ends at {resumed.final_loss}, the straight run at {straight.final_loss}"
+    assert counts == counts_resumed == {name: 0 for name in counts}, (counts, counts_resumed)
+
+    # the step's parts, on a fresh state
+    tokens = TRAIN_FULL["seq_len"] * TRAIN_FULL["global_batch"]
+    state, upd = init_train_state(cfg, spec.optimizer, TRAIN_FULL["peak_lr"],
+                                  TRAIN_FULL["warmup"], TRAIN_FULL["steps"], seed=0,
+                                  device=device)
+    marks = []
+
+    def timed_update(grads, opt, model):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        upd(grads, opt, model)
+        b.record()
+        marks.append((a, b))
+
+    step_fn = make_train_step(cfg, timed_update)
+    batch = make_batch(cfg, TRAIN_FULL["seq_len"], TRAIN_FULL["global_batch"], device=device)
+    for _ in range(3):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    opt_ms = [a.elapsed_time(b) for a, b in marks[1:]]
+    prof = profile_train_steps(step_fn, state, batch)
+    warm_s = sum(straight.step_times[1:]) / len(straight.step_times[1:])
+    flops = train_flops(cfg, TRAIN_FULL["seq_len"], TRAIN_FULL["global_batch"])
+    out = dict(
+        arch=cfg.name, params=cfg.param_count(), optimizer=spec.optimizer, **TRAIN_FULL,
+        losses=losses, resumed_losses=resumed.losses, resume_rel_diff=rel,
+        first_step_s=straight.step_times[0], warm_s_per_step=warm_s,
+        tokens_per_s=tokens / warm_s, model_flops_per_step=flops,
+        bf16_peak_share=flops / warm_s / BF16_PEAK_FLOPS, optimizer_ms=opt_ms,
+        peak_gb=peak_gb, ckpt_write_s=resumed.ckpt_write_s, restore_s=resumed.restore_s,
+        launches=counts, **prof, device=torch.cuda.get_device_name(0))
+    log("phase training: qwen3-0.6b", json.dumps(out))
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mamba(device):
+    """(b): Mamba2-370M at full width, the chunked SSD's backward on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import TrainLoopConfig, run_training
+
+    spec = get_config("mamba2-370m")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rep = run_training(spec.model, TrainLoopConfig(**TRAIN_MAMBA, optimizer=spec.optimizer),
+                       device=device)
+    counts = read_counts()
+    assert all(math.isfinite(x) for x in rep.losses), rep.losses
+    assert rep.losses[-1] < rep.losses[0], f"Mamba2-370M loss did not fall: {rep.losses}"
+    assert counts == {name: 0 for name in counts}, counts
+    warm_s = sum(rep.step_times[1:]) / len(rep.step_times[1:])
+    out = dict(arch=spec.model.name, **TRAIN_MAMBA, losses=rep.losses,
+               first_step_s=rep.step_times[0], warm_s_per_step=warm_s,
+               tokens_per_s=TRAIN_MAMBA["seq_len"] * TRAIN_MAMBA["global_batch"] / warm_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log("phase training: mamba2-370m", json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(arch, device, steps=TRAIN_SMOKE["steps"]):
+    """(c): ``arch``'s smoke configuration trained on the card and on the
+    CPU from the same weights and batches with its spec's optimizer (and
+    Nemotron's bf16 gradients over 2 microbatches; the gather CE for
+    ``TRAIN_SMOKE["gather_arch"]``): loss and grad_norm within
+    ``TRAIN_RTOL`` at every step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    spec = get_config(arch)
+    cfg = spec.smoke
+    settings = dict(microbatches=2 if spec.grad_dtype == "bfloat16" else 1,
+                    grad_dtype=spec.grad_dtype,
+                    ce_mode="gather" if arch == TRAIN_SMOKE["gather_arch"] else "onehot")
+    states, steppers = {}, {}
+    for dev in ("cpu", device):
+        states[dev], upd = init_train_state(cfg, spec.optimizer, TRAIN_SMOKE["peak_lr"],
+                                            TRAIN_SMOKE["warmup"], steps, seed=0, device=dev)
+        steppers[dev] = make_train_step(cfg, upd, **settings)
+    with torch.no_grad():
+        for a, b in zip(states["cpu"].model.parameters(), states[device].model.parameters()):
+            b.copy_(a)
+    rows = []
+    reset_counts()
+    for step in range(steps):
+        m = {}
+        for dev in ("cpu", device):
+            batch = make_batch(cfg, TRAIN_SMOKE["seq_len"], TRAIN_SMOKE["batch"],
+                               seed=np.uint64(step), device=dev)
+            _, metrics = steppers[dev](states[dev], batch)
+            m[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        for k in ("loss", "grad_norm"):
+            want, got = m["cpu"][k], m[device][k]
+            assert math.isfinite(got) and abs(got - want) <= TRAIN_RTOL * abs(want), \
+                f"{arch} step {step}: {k} {got} on the card, {want} on the CPU"
+        rows.append(dict(step=step, card=m[device], cpu=m["cpu"]))
+    counts = read_counts()
+    assert counts == {name: 0 for name in counts}, (arch, counts)
+    err = max(abs(r["card"][k] - r["cpu"][k]) / abs(r["cpu"][k])
+              for r in rows for k in ("loss", "grad_norm"))
+    out = dict(arch=cfg.name, optimizer=spec.optimizer, **settings, max_rel_err=err, steps=rows)
+    log("phase training: card vs CPU", json.dumps(out))
+    return out
+
+
+def phase_training(device):
+    """Phase 15: (a) Qwen3-0.6B trained at full width, straight and resumed
+    through an injected failure, (b) Mamba2-370M at full width, (c) the ten
+    smoke configurations card = CPU; no kernel of the repository launched."""
+    from repro_torch.configs import list_archs
+
+    t_phase = time.perf_counter()
+    out = dict(qwen3=train_full_width(device), mamba2=train_mamba(device))
+    out["smoke"] = {arch: train_card_vs_cpu(arch, device) for arch in list_archs()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase training: {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -2726,6 +3003,8 @@ def main() -> int:
     campaign = phase_campaign(device)
     service = phase_service(device, campaign.pop("artifacts"))
     families = phase_families(device)
+    training = phase_training(device)
+    launch_checks = finish_launch_checks(evo.pop("launch_checks"))
 
     served = attn_rows[0]
     timed_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -2737,7 +3016,8 @@ def main() -> int:
     kernels = [
         dict(name="sim_step", route="cuda", source="src/repro_torch/csrc/sim_step.cu",
              replaces="src/repro/kernels/sim_step.py:41", launches=main["launches"],
-             max_abs_err=max(max_err, main_row["max_abs_err"], evo["max_abs_err"]),
+             max_abs_err=max([max_err, main_row["max_abs_err"], evo["max_abs_err"]]
+                             + [c["max_abs_err"] for c in launch_checks]),
              ms=main_row["ms"],
              plain_ms=main_row["plain_ms"], bound_ms=main_row["bytes_bound_ms"],
              bound_by="bytes", library_ms=None,
@@ -2747,7 +3027,8 @@ def main() -> int:
              main_path_sim_s=main["sim_s"],
              device_explorer_launches=evo["main_path"]["launches"],
              device_explorer_kernel_ms=evo["main_path"]["relaxed_kernel_ms"],
-             device_explorer_max_abs_err=evo["max_abs_err"],
+             device_explorer_max_abs_err=max([evo["max_abs_err"]]
+                                             + [c["max_abs_err"] for c in launch_checks]),
              exact_path_launches=exact["ilp"]["launches"],
              large_tier_launches=[r["launches"] for r in exact["large"]],
              exact_scenarios_kernel_ms=exact["kernel_ms"],
@@ -2755,6 +3036,7 @@ def main() -> int:
              campaign_launches=campaign["run"]["launches"],
              campaign_kernel_ms=campaign["run"]["kernel_ms"],
              auto_crossover_batch=campaign["crossover"]["crossing"],
+             training_launches=training["qwen3"]["launches"]["sim_step"],
              served_launches=service["inline"]["launches"],
              served_kernel_ms=service["inline"]["kernel_ms"],
              dataflow_launches=service["dataflow"]["launches"]),
@@ -2768,6 +3050,7 @@ def main() -> int:
                  for key in ("ms", "replaced_ms", "library_ms", "bound_ms", "host_us")},
              families={r["shape"]: {key: r[key] for key in timed_keys}
                        for r in append_rows if r["shape"] in FAMILY_APPEND},
+             training_launches=training["qwen3"]["launches"]["mrb_append"],
              family_launches=family_launches["mrb_append"]),
         dict(name="mrb_decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
@@ -2779,7 +3062,8 @@ def main() -> int:
              qwen3_long={key: qwen3_long[key] for key in ("ms", "library_ms", "bound_ms")},
              families={r["shape"]: {key: r[key] for key in timed_keys + ("splits", "tile")}
                        for r in attn_rows if r["shape"] in FAMILY_ATTN},
-             family_launches=family_launches["mrb_decode_attention"]),
+             family_launches=family_launches["mrb_decode_attention"],
+             training_launches=training["qwen3"]["launches"]["mrb_decode_attention"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

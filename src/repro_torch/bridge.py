@@ -22,6 +22,7 @@ from .core.problem import ExplorationProblem
 from .core.schedule import Schedule
 from .device import resolve_device
 from .models.config import ModelConfig
+from .models import tree as tree_layout
 from .models.model import DecoderLM
 
 __all__ = [
@@ -31,6 +32,7 @@ __all__ = [
     "problem_from_json",
     "run_from_json",
     "params_from_jax",
+    "train_state_from_jax",
     "decode_state_from_jax",
     "decode_state_to_numpy",
 ]
@@ -95,31 +97,11 @@ def _is_norm_param(name: str) -> bool:
     )
 
 
-def _jax_key(cfg: ModelConfig, name: str):
-    """(JAX tree key, index into its stacked axes) of the port's parameter
-    ``name``: layer ``l`` of ``blocks`` is ``blocks[l]``, or for a hybrid
-    ``blocks[l // every][l % every]`` and past the groups ``tail[j]``."""
-    if not name.startswith("blocks."):
-        return name, ()
-    _, layer, rest = name.split(".", 2)
-    l = int(layer)
-    every = cfg.shared_attn_every
-    if not every:
-        return f"blocks.{rest}", (l,)
-    n_groups = cfg.n_layers // every
-    if l < n_groups * every:
-        return f"blocks.{rest}", (l // every, l % every)
-    return f"tail.{rest}", (l - n_groups * every,)
+_jax_key = tree_layout.ref_key
 
 
-def _stack_shape(cfg: ModelConfig, key: str):
-    """The stacked axes the reference's tree has in front of leaf ``key``."""
-    every = cfg.shared_attn_every
-    if key.startswith("blocks."):
-        return (cfg.n_layers // every, every) if every else (cfg.n_layers,)
-    if key.startswith("tail."):
-        return (cfg.n_layers - cfg.n_layers // every * every,)
-    return ()
+def _dtype_name(a) -> str:
+    return str(a.dtype).replace("torch.", "")
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> DecoderLM:
@@ -127,46 +109,82 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping, *, device="cuda") -> Decode
     port's :class:`~repro_torch.models.model.DecoderLM`.  Layer ``l`` of the
     stacked ``blocks`` tree becomes ``blocks.<l>``; a hybrid's grouped
     ``blocks [n_groups, every, …]`` and ``tail`` become ``blocks.<l>`` in
-    layer order and its ``shared`` block ``shared``.  Keys, stacked axes,
-    shapes and dtypes must match exactly, except that a block's bfloat16
-    norm scales, biases and ``q_norm``/``k_norm`` (what the reference's
-    bfloat16 trees hold) are up-cast to the port's float32, which is exact.
-    The SSM vectors and the MoE router stay in the tree's dtype, as the
-    port keeps them in ``cfg.dtype``."""
+    layer order and its ``shared`` block ``shared`` (``models/tree.py``).
+    Keys, stacked axes, shapes and dtypes must match the reference's tree
+    exactly; a block's bfloat16 norm scales, biases and ``q_norm``/
+    ``k_norm`` (what the reference's bfloat16 trees hold) are up-cast to
+    the port's float32, which is exact.  The SSM vectors and the MoE router
+    stay in the tree's dtype, as the port keeps them in ``cfg.dtype``."""
     model = DecoderLM(cfg, device=resolve_device(device))
+    params = dict(model.named_parameters())
     flat = _flatten(tree)
-    want = set()
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            key, index = _jax_key(cfg, name)
-            want.add(key)
-            if key not in flat:
-                raise KeyError(f"params_from_jax: the JAX tree has no {key!r}")
-            src = np.asarray(flat[key])
-            stack = _stack_shape(cfg, key)
-            if src.shape[:len(stack)] != stack:
-                raise ValueError(
-                    f"params_from_jax: {key} is stacked as {src.shape[:len(stack)]}, "
-                    f"expected {stack}"
-                )
-            x = _to_torch(src[index], p.device)
-            if _is_norm_param(name) and x.dtype == torch.bfloat16 and p.dtype == torch.float32:
-                # The reference casts every float32 leaf with ndim >= 2 to
-                # cfg.dtype, so stacked [L, d] norm scales arrive in
-                # bfloat16.  Its norm_fwd and _rms multiply a float32
-                # activation by the scale, promoting it to float32 anyway:
-                # the up-cast is exact and computes what the reference does.
-                x = x.float()
-            if tuple(x.shape) != tuple(p.shape) or x.dtype != p.dtype:
-                raise ValueError(
-                    f"params_from_jax: {name} is {tuple(x.shape)} {x.dtype}, "
-                    f"expected {tuple(p.shape)} {p.dtype}"
-                )
-            p.copy_(x)
-    extra = set(flat) - want
+    leaves = tree_layout.layout(cfg)
+    for key, leaf in leaves.items():
+        if key not in flat:
+            raise KeyError(f"params_from_jax: the JAX tree has no {key!r}")
+        src = np.asarray(flat[key])
+        if src.shape[:len(leaf.stack)] != leaf.stack:
+            raise ValueError(
+                f"params_from_jax: {key} is stacked as {src.shape[:len(leaf.stack)]}, "
+                f"expected {leaf.stack}"
+            )
+        if src.shape != leaf.shape or _dtype_name(src) != _dtype_name(leaf):
+            raise ValueError(
+                f"params_from_jax: {key} is {src.shape} {src.dtype}, "
+                f"expected {leaf.shape} {_dtype_name(leaf)}"
+            )
+        # The reference casts every float32 leaf with ndim >= 2 to
+        # cfg.dtype, so stacked [L, d] norm scales arrive in bfloat16.  Its
+        # norm_fwd and _rms multiply a float32 activation by the scale,
+        # promoting it to float32 anyway: the port's float32 norms take the
+        # up-cast (in write_back's copy), which is exact and computes what
+        # the reference does.
+        tree_layout.write_back(leaf, params, _to_torch(src, model.device))
+    extra = set(flat) - set(leaves)
     if extra:
         raise KeyError(f"params_from_jax: the port has no parameters for {sorted(extra)}")
     return model
+
+
+def _field(obj: Any, name: str) -> Any:
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def train_state_from_jax(cfg: ModelConfig, tree: Any, optimizer: str, *, device="cuda"):
+    """A reference ``TrainState`` (``params``, ``opt`` = ``OptState(step,
+    inner)``; NamedTuples or dicts, leaves as numpy arrays) as the port's
+    :class:`~repro_torch.runtime.train.TrainState` for ``optimizer``
+    (``"adamw"``: ``inner`` = ``{"m", "v"}`` trees; ``"adafactor"``: per
+    leaf ``{"vr", "vc"}`` or ``{"v"}``), with gradients on.  The optimizer
+    state keeps the reference's stacked shapes, so it is copied as is."""
+    from .optim import OptState
+    from .runtime.train import TrainState
+
+    model = params_from_jax(cfg, _field(tree, "params"), device=device)
+    model.requires_grad_(True)
+    opt = _field(tree, "opt")
+    inner = _field(opt, "inner")
+    dev = model.device
+    leaves = tree_layout.layout(cfg)
+    if optimizer == "adamw":
+        state = {part: {k: _to_torch(v, dev) for k, v in _flatten(inner[part]).items()}
+                 for part in ("m", "v")}
+        keys = [set(state["m"]), set(state["v"])]
+    elif optimizer == "adafactor":
+        flat = _flatten(inner)
+        state = {}
+        for name, v in flat.items():
+            key, slot = name.rsplit(".", 1)
+            state.setdefault(key, {})[slot] = _to_torch(v, dev)
+        keys = [set(state)]
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    for k in keys:
+        if k != set(leaves):
+            raise KeyError(f"train_state_from_jax: optimizer leaves {sorted(k ^ set(leaves))} "
+                           "differ from the model's")
+    step = _to_torch(np.asarray(_field(opt, "step"), dtype=np.int32), dev)
+    return TrainState(model, OptState(step, state))
 
 
 def decode_state_from_jax(state: Mapping, *, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:

@@ -22,7 +22,7 @@ import torch
 from ..device import resolve_device
 from ..models.config import ModelConfig
 
-__all__ = ["Batch", "SyntheticStream", "make_batch"]
+__all__ = ["Batch", "SyntheticStream", "make_batch", "batch_specs"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -122,3 +122,24 @@ def make_batch(cfg: ModelConfig, seq_len: int, batch: int, seed: np.uint64 = np.
     out["tokens"] = put(toks)
     out["labels"] = put(labels)
     return out
+
+
+def batch_specs(cfg: ModelConfig, seq_len: int, global_batch: int) -> Batch:
+    """The batch's shapes and dtypes as ``device="meta"`` tensors (no
+    allocation): the reference's ``ShapeDtypeStruct`` stand-ins."""
+    def spec(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.n_codebooks:
+        return {
+            "tokens": spec(global_batch, cfg.n_codebooks, seq_len),
+            "labels": spec(global_batch, cfg.n_codebooks, seq_len),
+            "cond_embeds": spec(global_batch, cfg.n_cond_tokens, cfg.d_model, dtype=torch.float32),
+        }
+    if cfg.n_img_tokens:
+        return {
+            "tokens": spec(global_batch, seq_len - cfg.n_img_tokens),
+            "labels": spec(global_batch, seq_len),
+            "img_embeds": spec(global_batch, cfg.n_img_tokens, cfg.d_model, dtype=torch.float32),
+        }
+    return {"tokens": spec(global_batch, seq_len), "labels": spec(global_batch, seq_len)}

@@ -355,13 +355,38 @@ def embed_fwd(p: Embed, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x.to(torch_dtype(cfg.dtype))
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` for a bfloat16 ``w`` on the card with float32 accumulation
+    and output (``torch.mm(..., out_dtype=torch.float32)``, which has no
+    derivative); the backward takes the two products in ``w``'s dtype with
+    float32 accumulation, the incoming gradient rounded to it."""
+
+    @staticmethod
+    def forward(ctx, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        xw = x2.to(w.dtype)
+        ctx.save_for_backward(xw, w)
+        ctx.x_dtype = x2.dtype
+        return torch.mm(xw, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        xw, w = ctx.saved_tensors
+        gw = g.to(w.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(gw, w.t(), out_dtype=torch.float32).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(xw.t(), gw, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x.float() @ w.float()`` for w [D, V], without a float32 copy of a
     bfloat16 ``w`` on the card (float32 accumulation and output)."""
     if w.dtype == torch.float32 or not w.is_cuda:
         return x.float() @ w.float()
     lead = x.shape[:-1]
-    out = torch.mm(x.reshape(-1, x.shape[-1]).to(w.dtype), w, out_dtype=torch.float32)
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
 
 

@@ -29,9 +29,14 @@ through ``layers.attention_decode`` and so through the ring kernels.
 ``CHUNKED_ATTN_THRESHOLD``, ``ATTN_Q_BLOCK``, ``ATTN_K_BLOCK`` and
 ``ATTN_UNROLL_Q`` are read at call time.
 
+With ``cfg.remat`` and gradients enabled, :func:`forward` recomputes each
+block in the backward (``torch.utils.checkpoint``, non-reentrant), and a
+hybrid's whole group body (the shared block and its ``every`` blocks), as
+the reference's ``jax.checkpoint`` does; inference paths are unaffected.
+
 Left out: the reference's ``constrain_activation`` and ``sharding_utils``
 calls are no-ops without a mesh and come with distribution (ROADMAP
-module item 11); ``cfg.remat`` is a training concern (item 10).
+module item 11).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -432,6 +438,14 @@ def forward(model: DecoderLM, tokens: torch.Tensor, *,
     positions = torch.arange(L, device=x.device)
     windows = _layer_windows(cfg, L)
     cond = cond_embeds.to(x.dtype) if cond_embeds is not None else None
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def block(l, x):
+        return _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
+
+    def run_block(l, x):
+        return checkpoint(block, l, x, use_reentrant=False) if remat else block(l, x)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     start = 0
     if cfg.shared_attn_every:
@@ -439,13 +453,20 @@ def forward(model: DecoderLM, tokens: torch.Tensor, *,
         n_groups, start = _groups(cfg)
         every = cfg.shared_attn_every
         shared_win = min(cfg.sliding_window, L + 1) if cfg.sliding_window else L + 1
-        for g in range(n_groups):
+
+        def group(g, x, aux):
             x = _shared_block_fwd(model.shared, cfg, x, x0, positions, shared_win)
             for l in range(g * every, (g + 1) * every):
-                x, a = _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
+                x, a = run_block(l, x)
                 aux = aux + a
+            return x, aux
+
+        for g in range(n_groups):
+            # the shared block's activations are not kept per group either
+            x, aux = (checkpoint(group, g, x, aux, use_reentrant=False) if remat
+                      else group(g, x, aux))
     for l in range(start, cfg.n_layers):  # every layer, or a hybrid's tail
-        x, a = _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
+        x, a = run_block(l, x)
         aux = aux + a
     x = norm_fwd(model.final_norm, x)
     if return_hidden:

@@ -139,9 +139,14 @@ def ssm_fwd(p: SSM, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
         Cq = Ccc[:, c].float()
         aq, dtq = ac[:, c], dtc[:, c]
         cum = torch.cumsum(aq, dim=1)                             # [B,Q,nh]
-        # intra-chunk: M[b,i,j,h] = exp(cum_i - cum_j) for i >= j
+        # intra-chunk: M[b,i,j,h] = exp(cum_i - cum_j) for i >= j.  Masked
+        # before the exp: above the diagonal cum_i - cum_j > 0 overflows to
+        # inf, and exp's backward there would give 0 · inf = NaN (the
+        # reference masks after its exp, and its gradients are NaN from
+        # the first step at the smoke and full-width chunks); the values
+        # are the same.
         diff = cum[:, :, None, :] - cum[:, None, :, :]            # [B,Q,Q,nh]
-        M = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+        M = torch.exp(torch.where(mask[None, :, :, None], diff, -math.inf))
         xdt = xq * dtq[..., None]                                 # [B,Q,nh,P]
         Bh = torch.repeat_interleave(Bq, heads_per_group, dim=2)  # [B,Q,nh,N]
         Ch = torch.repeat_interleave(Cq, heads_per_group, dim=2)

@@ -13,9 +13,11 @@ and an extracted LM graph's plan schedules through the kernel, the ring
 kernels' sweeps (exact for ``mrb_append`` and the fused ``mrb_append_kv``,
 ω included; 3e-5 float32 and 2e-2 bfloat16 for ``mrb_decode_attention``,
 also at ``t = -1``, where the answer is the mean of V, and at every model
-family's attention shape), and each model family's smoke configuration
-served on the card against the CPU.  This file imports
-no JAX: the card's host has none.
+family's attention shape), each model family's smoke configuration
+served on the card against the CPU, and training: the bf16 vocabulary
+product's forward and backward against the float32 product, a train step
+card = CPU, and a checkpoint of card tensors taken while the next step
+runs.  This file imports no JAX: the card's host has none.
 """
 import os
 import sys
@@ -653,3 +655,82 @@ def test_service_default_device_is_the_card(tmp_path, capsys):
     err = capsys.readouterr().err
     assert err.startswith("repro_torch: error: ") and "CUDA" in err
     assert len(err.strip().splitlines()) == 1
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_vocab_matmul_bf16_forward_and_backward(device, tied):
+    """``_matmul_f32`` with bfloat16 weights on the card (``mm`` with a
+    float32 output, its backward in ``_MatmulF32``) against the float32
+    product: forward to float32 rounding, gradients to bfloat16 rounding
+    of the incoming gradient; ``tied`` passes the transposed embedding."""
+    from repro_torch.models.layers import _matmul_f32
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(2, 64, 256, device=device, generator=gen).to(torch.bfloat16)
+    tok = (torch.randn(1000, 256, device=device, generator=gen) * 0.02).to(torch.bfloat16)
+    x.requires_grad_(True)
+    tok.requires_grad_(True)
+    out = _matmul_f32(x, tok.t() if tied else tok.t().contiguous())
+    assert out.dtype == torch.float32 and out.shape == (2, 64, 1000)
+    g = torch.randn(out.shape, device=device, generator=gen)
+    dx, dtok = torch.autograd.grad(out, (x, tok), g)
+    assert dx.dtype == torch.bfloat16 and dtok.dtype == torch.bfloat16
+    xf = x.detach().float().requires_grad_(True)
+    tf = tok.detach().float().requires_grad_(True)
+    ref = xf @ tf.t()
+    rdx, rdtok = torch.autograd.grad(ref, (xf, tf), g)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    for got, want in ((dx, rdx), (dtok, rdtok)):
+        assert float((got.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_train_step_on_the_card_matches_the_cpu(device):
+    """qwen3-smoke, float32, TF32 off: loss and grad_norm within 1e-4 of the
+    CPU's at each of 3 steps (``chip_smoke.py`` phase 15 (c))."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        row = chip_smoke.train_card_vs_cpu("qwen3-0.6b", device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert len(row["steps"]) == 3 and row["max_rel_err"] <= chip_smoke.TRAIN_RTOL
+
+
+def test_checkpoint_of_card_state_taken_while_the_next_step_runs(device, tmp_path):
+    """bf16 weights and float32 optimizer state on the card: ``save``
+    returns once the host copy is taken, the next step updates the weights
+    in place while the writer runs, and the checkpoint restores exactly
+    the state at the save (bfloat16 bits included)."""
+    from repro_torch.ckpt import CheckpointManager, restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.runtime.train import (init_train_state, load_state_tree,
+                                           make_train_step, state_tree)
+
+    cfg = get_config("qwen3-0.6b").smoke.replace(dtype="bfloat16")
+    state, upd = init_train_state(cfg, device=device)
+    step = make_train_step(cfg, upd)
+    batch = make_batch(cfg, 32, 2, device=device)
+    step(state, batch)
+
+    def flat(t, prefix=""):
+        out = {}
+        for k, v in t.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {f"{prefix}{k}": v.detach().cpu().clone()})
+        return out
+
+    want = flat(state_tree(state))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state_tree(state))
+    step(state, batch)
+    mgr.wait()
+    assert not torch.equal(flat(state_tree(state))["params/blocks/attn/wq"],
+                           want["params/blocks/attn/wq"])
+    got = flat(restore_pytree(str(tmp_path), 1, state_tree(state, template=True)))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    assert want["params/blocks/attn/wq"].dtype == torch.bfloat16
+    load_state_tree(state, restore_pytree(str(tmp_path), 1, state_tree(state, template=True)))
+    assert int(state.opt.step) == 1
