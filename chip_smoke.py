@@ -201,6 +201,26 @@ Phases, none of whose failures is caught (any mismatch exits non-zero):
     off), 3 steps each with the spec's optimizer (Adafactor for Qwen3-MoE
     and Nemotron), Nemotron's bf16 gradients over 2 microbatches and
     Gemma-2's gather CE: loss and ``grad_norm`` within 1e-4 at every step.
+16. distribution (launch counts reset before the path and read after it:
+    0 each): (a) phase 15 (a)'s Qwen3-0.6B at full width and depth on one
+    NCCL rank (a file store in a temporary directory), from one copy of
+    the state: 3 int8 compressed data-parallel steps
+    (``make_compressed_dp_train_step``) and 3 uncompressed steps in turns,
+    the first step's loss within 1e-5 relative of the uncompressed step's
+    and the parameters it leaves within 5e-3 (``tests/test_substrate.py``'s
+    one-step bounds), every loss finite; the first step's reduced gradient
+    of each stacked leaf against the plain gradient quantized and
+    dequantized apart from the step (``int8_decompress`` of
+    ``int8_error_feedback_compress``), its residuals likewise, its
+    ``grad_norm`` the reduced gradients' norm and the optimizer's gradients
+    those clipped by it, bit for bit (one int8 quantum allowed at 1e-5 of
+    the elements where the gradient's run-to-run noise moves a rounding); s per step of each, the later
+    steps' loss and parameter differences, ``compressed_psum``'s ms per
+    step (CUDA events), peak GB, the residual's norm; (b) ``python -m repro_torch.launch.dryrun
+    --arch qwen3-0.6b --shape train_4k`` on the production 16×16 mesh in a
+    spawned process (fake tensors, no CUDA device visible) started before
+    phase 15: an ``ok`` record with per-device FLOPs and collective bytes,
+    its ``hbm_bytes`` equal to the card's ``total_memory``.
 
 Then one JSON line describing every kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -210,6 +230,7 @@ result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import json
 import math
@@ -219,6 +240,7 @@ import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2950,6 +2972,291 @@ def phase_training(device):
     return out
 
 
+# ------------------------------------------------------------- distribution
+# Phase 16 (a): phase 15 (a)'s Qwen3-0.6B at full width and depth (bf16,
+# AdamW, remat, seq 1024, global batch 8, seed 0) on one NCCL rank (the
+# card's host has one H100 and NCCL puts one rank on a GPU): from one copy
+# of the state, 3 int8 compressed data-parallel steps and 3 uncompressed
+# steps in turns; the first step held to tests/test_substrate.py's
+# one-step bounds (loss relative 1e-5, parameters within 5e-3) and its
+# reduction to the plain gradients quantized apart from the step
+# (check_reduction), the later steps' differences reported.  (b) one dry-run cell of the
+# production 16×16 mesh on fake tensors in a spawned process beside
+# phases 15 and 16 (no card memory).
+DIST = dict(steps=3, seq_len=1024, global_batch=8, peak_lr=1e-3, warmup=6, seed=0)
+DIST_LOSS_RTOL = 1e-5
+DIST_PARAM_ATOL = 5e-3
+DRYRUN_CELL = dict(arch="qwen3-0.6b", shape="train_4k", threads=2)
+
+
+def start_dryrun(out_dir):
+    """Phase 16 (b)'s dry run in a child process (no CUDA device visible,
+    ``threads`` intra-op threads), its output in files under ``out_dir``."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS=str(DRYRUN_CELL["threads"]))
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_CELL["arch"],
+            "--shape", DRYRUN_CELL["shape"], "--out", out_dir]
+    log_f = open(os.path.join(out_dir, "dryrun.log"), "w")
+    return dict(proc=subprocess.Popen(argv, env=env, stdout=log_f, stderr=subprocess.STDOUT),
+                log=log_f, t0=time.perf_counter(), out_dir=out_dir)
+
+
+def finish_dryrun(run):
+    """Waits for the dry run and checks its record: ``ok`` on the 16×16 mesh,
+    per-device FLOPs and collective bytes, ``fits_hbm`` against the card."""
+    import torch
+    from repro_torch.launch.mesh import HW
+
+    rc = run["proc"].wait(timeout=900)
+    seconds = time.perf_counter() - run["t0"]
+    run["log"].close()
+    with open(os.path.join(run["out_dir"], "dryrun.log")) as f:
+        tail = f.read()[-3000:]
+    tag = f"{DRYRUN_CELL['arch']}__{DRYRUN_CELL['shape']}__single"
+    path = os.path.join(run["out_dir"], tag + ".json")
+    rec = None
+    if os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+    assert rc == 0 and rec is not None, f"dry run exited {rc}: {tail} {json.dumps(rec)}"
+    assert rec["status"] == "ok" and rec["devices"] == 256, rec
+    assert rec["hlo_cost"]["flops"] > 0 and rec["hlo_cost"]["collective_bytes"] > 0, rec
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert rec["memory"]["hbm_bytes"] == HW.HBM_BYTES == total, (HW.HBM_BYTES, total)
+    out = dict(record=rec, wall_s=seconds, card_total_memory=total)
+    log("phase distribution: dry run", json.dumps(out))
+    return out
+
+
+def reduction_reference(cfg, model, batch, err):
+    """One compressed step's reduction at world size 1, computed apart from
+    the step, by reference key: each stacked leaf's plain gradient
+    (``make_loss_fn``, autograd) quantized with its residual ``err`` and
+    dequantized (``int8_decompress(int8_error_feedback_compress(g, err))``),
+    the scale, the new residual, and ``noise``: how far two runs of the same
+    gradient part on this device (0 where the backward is deterministic)."""
+    import torch
+    from repro_torch.models import tree
+    from repro_torch.optim import int8_decompress, int8_error_feedback_compress
+    from repro_torch.runtime.train import make_loss_fn
+
+    loss_fn = make_loss_fn(cfg)
+    names, params = zip(*model.named_parameters())
+
+    def grads():
+        loss, _ = loss_fn(model, batch)
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, gs)}
+
+    g1, g2 = grads(), grads()
+    out = {}
+    for key, leaf in tree.layout(cfg).items():
+        a = tree.stacked(leaf, g1)
+        q, scale, new_err = int8_error_feedback_compress(a, err[key])
+        noise = float((a.float() - tree.stacked(leaf, g2).float()).abs().max())
+        out[key] = dict(mean=int8_decompress(q, scale), scale=float(scale), err=new_err,
+                        noise=noise)
+    return out
+
+
+@contextlib.contextmanager
+def recording_reduction(rec):
+    """While open, the compressed step's ``compressed_psum`` results (one
+    per stacked leaf, in ``tree.layout`` order) are kept in ``rec["means"]``
+    and the gradients it hands the optimizer in ``rec["grads"]`` (through
+    :func:`capturing`)."""
+    from repro_torch.runtime import compressed_dp
+
+    psum = compressed_dp.compressed_psum
+
+    def kept(*a, **k):
+        out = psum(*a, **k)
+        rec["means"].append(out[0].detach().clone())
+        return out
+
+    rec.update(means=[], grads=None, on=True)
+    compressed_dp.compressed_psum = kept
+    try:
+        yield rec
+    finally:
+        compressed_dp.compressed_psum = psum
+        rec["on"] = False
+
+
+def capturing(upd, rec):
+    """The optimizer update ``upd``, keeping a copy of its gradients in
+    ``rec["grads"]`` while ``rec["on"]``."""
+
+    def update(grads, opt, model):
+        if rec.get("on"):
+            rec["grads"] = {k: g.detach().clone() for k, g in grads.items()}
+        return upd(grads, opt, model)
+
+    return update
+
+
+def check_reduction(cfg, want, rec, err, grad_norm, grad_clip=1.0, max_off=1e-5):
+    """Holds one compressed step at world size 1 against ``want``
+    (:func:`reduction_reference`): the leaf means and the optimizer's
+    gradients kept by :func:`recording_reduction`, the step's new residuals
+    ``err`` and its pre-clip ``grad_norm``.  A mean or a residual may part
+    from the reference by the gradient's run-to-run noise and, at no more
+    than ``max_off`` of all elements, by one int8 quantum more (a rounding
+    at a .5 boundary that the noise moved); the norm is the recorded means'
+    (relative 1e-5) and the optimizer's gradients are the means' rows
+    clipped by it, bit for bit.  Raises on a mismatch; returns the counts."""
+    import torch
+    from repro_torch.models import tree
+
+    layout = tree.layout(cfg)
+    assert len(rec["means"]) == len(layout) and rec["grads"] is not None, len(rec["means"])
+    n = off_mean = off_err = 0
+    noise = 0.0
+    with torch.no_grad():
+        for (key, leaf), mean in zip(layout.items(), rec["means"]):
+            w = want[key]
+            q, nz = w["scale"], w["noise"]
+            noise = max(noise, nz)
+            for got, ref, slack, tag in ((mean, w["mean"], 1.01 * nz, "mean"),
+                                         (err[key], w["err"], 2.02 * nz, "err")):
+                assert tuple(got.shape) == tuple(ref.shape) == leaf.shape, (key, tag)
+                d = (got.float() - ref.float()).abs()
+                far = d > slack
+                if bool(far.any()):
+                    worst = float(d[far].max())
+                    assert worst <= 1.01 * q + slack, (key, tag, worst, q, slack)
+                if tag == "mean":
+                    off_mean += int(far.sum())
+                else:
+                    off_err += int(far.sum())
+            n += mean.numel()
+        norm = torch.stack([m.square().sum() for m in rec["means"]]).sum().sqrt()
+        assert abs(float(grad_norm) - float(norm)) <= 1e-5 * float(norm), (grad_norm, norm)
+        scale = torch.clamp(grad_clip / torch.clamp(grad_norm, min=1e-9), max=1.0)
+        for (key, leaf), mean in zip(layout.items(), rec["means"]):
+            assert torch.equal(tree.stacked(leaf, rec["grads"]), mean * scale), key
+    assert off_mean <= max_off * n and off_err <= max_off * n, (off_mean, off_err, n)
+    return dict(elements=n, means_off=off_mean, residuals_off=off_err, grad_noise=noise)
+
+
+def compressed_vs_plain(device, tmp):
+    """(a): the int8 compressed step against the uncompressed step on one
+    NCCL rank, from one copy of the state."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import tree
+    from repro_torch.runtime import compressed_dp, init_train_state, make_train_step
+
+    spec = get_config("qwen3-0.6b")
+    cfg = spec.model
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    store = dist.FileStore(os.path.join(tmp, "nccl-store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=device)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        comp, upd = init_train_state(cfg, spec.optimizer, DIST["peak_lr"], DIST["warmup"],
+                                     DIST["steps"], seed=DIST["seed"], device=device)
+        plain = copy.deepcopy(comp)
+        batch = make_batch(cfg, DIST["seq_len"], DIST["global_batch"], device=device)
+        marks = []
+        psum = compressed_dp.compressed_psum
+
+        def timed_psum(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = psum(*a, **k)
+            e1.record()
+            marks[-1].append((e0, e1))
+            return out
+
+        def param_diff():
+            a, b = dict(cs.model.named_parameters()), dict(plain.model.named_parameters())
+            with torch.no_grad():
+                return max(float((tree.stacked(leaf, a).float() - tree.stacked(leaf, b).float())
+                                 .abs().max()) for leaf in tree.layout(cfg).values())
+
+        def timed(step, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, m
+
+        compressed_dp.compressed_psum = timed_psum
+        try:
+            rec = {}
+            init_cs, cstep = compressed_dp.make_compressed_dp_train_step(cfg, capturing(upd, rec))
+            pstep = make_train_step(cfg, upd)
+            cs = init_cs(comp)
+            want = reduction_reference(cfg, plain.model, batch, cs.err)
+            reset_counts()
+            rows = []
+            for i in range(DIST["steps"]):  # in turns, from the same state
+                marks.append([])
+                with recording_reduction(rec) if i == 0 else contextlib.nullcontext():
+                    s_c, m_c = timed(cstep, cs)
+                if i == 0:  # the first step's reduction against the plain gradients
+                    reduction = check_reduction(cfg, want, rec, cs.err, m_c["grad_norm"])
+                    del want
+                    rec.clear()
+                    torch.cuda.empty_cache()  # the peak is the steps', not the check's copies
+                    torch.cuda.reset_peak_memory_stats()
+                s_p, m_p = timed(pstep, plain)
+                rows.append(dict(s=s_c, loss=float(m_c["loss"]), plain_s=s_p,
+                                 plain_loss=float(m_p["loss"]),
+                                 grad_norm=float(m_c["grad_norm"]),
+                                 plain_grad_norm=float(m_p["grad_norm"]),
+                                 max_param_diff=param_diff()))
+            counts = read_counts()
+        finally:
+            compressed_dp.compressed_psum = psum
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for r, step_marks in zip(rows, marks):
+            r["compress_ms"] = sum(a.elapsed_time(b) for a, b in step_marks)
+            r["loss_rel_diff"] = abs(r["loss"] - r["plain_loss"]) / abs(r["plain_loss"])
+        err_norm = float(torch.stack([e.square().sum() for e in cs.err.values()]).sum().sqrt())
+        assert all(e.is_cuda for e in cs.err.values())
+    finally:
+        dist.destroy_process_group()
+    assert counts == {name: 0 for name in counts}, counts
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["plain_loss"]) for r in rows), rows
+    # the reference's bounds are one step's: the loss at the shared state and
+    # the parameters that step leaves; later steps part by design (each
+    # takes its own optimizer path), and their differences are reported
+    assert rows[0]["loss_rel_diff"] <= DIST_LOSS_RTOL, rows
+    assert rows[0]["max_param_diff"] < DIST_PARAM_ATOL, rows
+    assert err_norm > 0
+    warm = rows[1:]
+    out = dict(arch=cfg.name, world_size=1, backend="nccl", **DIST, steps_rows=rows,
+               warm_s_per_step=sum(r["s"] for r in warm) / len(warm),
+               warm_plain_s_per_step=sum(r["plain_s"] for r in warm) / len(warm),
+               compress_ms_per_step=sum(r["compress_ms"] for r in warm) / len(warm),
+               err_norm=err_norm, peak_gb=peak_gb, reduction=reduction,
+               launches=counts, device=torch.cuda.get_device_name(0))
+    out["overhead_s_per_step"] = out["warm_s_per_step"] - out["warm_plain_s_per_step"]
+    log("phase distribution: compressed step", json.dumps(out))
+    del comp, plain, cs, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_distribution(device, dry, tmp):
+    """Phase 16: (a) Qwen3-0.6B's int8 compressed data-parallel step at
+    full width on NCCL against the uncompressed step, no kernel of the
+    repository launched; (b) the dry run's record of one production cell."""
+    t_phase = time.perf_counter()
+    out = dict(compressed=compressed_vs_plain(device, tmp))
+    out["dryrun"] = finish_dryrun(dry)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase distribution: {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_lines(info):
     return [ln.strip() for ln in info["ptxas"].splitlines()
             if re.search(r"registers|barriers|smem|spill|Compiling entry", ln)]
@@ -3003,7 +3310,16 @@ def main() -> int:
     campaign = phase_campaign(device)
     service = phase_service(device, campaign.pop("artifacts"))
     families = phase_families(device)
-    training = phase_training(device)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dist-") as dist_tmp:
+        dry = start_dryrun(dist_tmp)
+        try:
+            training = phase_training(device)
+            distribution = phase_distribution(device, dry, dist_tmp)
+        finally:
+            if dry["proc"].poll() is None:
+                dry["proc"].kill()
+                dry["proc"].wait()
+            dry["log"].close()
     launch_checks = finish_launch_checks(evo.pop("launch_checks"))
 
     served = attn_rows[0]
@@ -3037,6 +3353,7 @@ def main() -> int:
              campaign_kernel_ms=campaign["run"]["kernel_ms"],
              auto_crossover_batch=campaign["crossover"]["crossing"],
              training_launches=training["qwen3"]["launches"]["sim_step"],
+             distribution_launches=distribution["compressed"]["launches"]["sim_step"],
              served_launches=service["inline"]["launches"],
              served_kernel_ms=service["inline"]["kernel_ms"],
              dataflow_launches=service["dataflow"]["launches"]),
@@ -3051,6 +3368,7 @@ def main() -> int:
              families={r["shape"]: {key: r[key] for key in timed_keys}
                        for r in append_rows if r["shape"] in FAMILY_APPEND},
              training_launches=training["qwen3"]["launches"]["mrb_append"],
+             distribution_launches=distribution["compressed"]["launches"]["mrb_append"],
              family_launches=family_launches["mrb_append"]),
         dict(name="mrb_decode_attention", route="cuda",
              source="src/repro_torch/csrc/decode_attention.cu",
@@ -3063,7 +3381,9 @@ def main() -> int:
              families={r["shape"]: {key: r[key] for key in timed_keys + ("splits", "tile")}
                        for r in attn_rows if r["shape"] in FAMILY_ATTN},
              family_launches=family_launches["mrb_decode_attention"],
-             training_launches=training["qwen3"]["launches"]["mrb_decode_attention"]),
+             training_launches=training["qwen3"]["launches"]["mrb_decode_attention"],
+             distribution_launches=distribution["compressed"]["launches"][
+                 "mrb_decode_attention"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -33,6 +33,7 @@ __all__ = [
     "run_from_json",
     "params_from_jax",
     "train_state_from_jax",
+    "compressed_state_from_jax",
     "decode_state_from_jax",
     "decode_state_to_numpy",
 ]
@@ -185,6 +186,29 @@ def train_state_from_jax(cfg: ModelConfig, tree: Any, optimizer: str, *, device=
                            "differ from the model's")
     step = _to_torch(np.asarray(_field(opt, "step"), dtype=np.int32), dev)
     return TrainState(model, OptState(step, state))
+
+
+def compressed_state_from_jax(cfg: ModelConfig, tree: Any, optimizer: str, *, device="cuda"):
+    """A reference ``CompressedTrainState`` (``params``, ``opt``, ``err``;
+    NamedTuples or dicts, leaves as numpy arrays) as the port's
+    :class:`~repro_torch.runtime.compressed_dp.CompressedTrainState`: the
+    train state as :func:`train_state_from_jax` gives it, the
+    error-feedback residuals as float32 copies keyed by the reference's
+    leaves, in their stacked shapes."""
+    from .runtime.compressed_dp import CompressedTrainState
+
+    ts = train_state_from_jax(cfg, {"params": _field(tree, "params"), "opt": _field(tree, "opt")},
+                              optimizer, device=device)
+    err = {k: _to_torch(np.asarray(v, np.float32), ts.model.device)
+           for k, v in _flatten(_field(tree, "err")).items()}
+    leaves = tree_layout.layout(cfg)
+    if set(err) != set(leaves):
+        raise KeyError(f"compressed_state_from_jax: residual leaves {sorted(set(err) ^ set(leaves))} "
+                       "differ from the model's")
+    for k, e in err.items():
+        if tuple(e.shape) != leaves[k].shape:
+            raise ValueError(f"{k}: residual of shape {tuple(e.shape)}, expected {leaves[k].shape}")
+    return CompressedTrainState(ts.model, ts.opt, err)
 
 
 def decode_state_from_jax(state: Mapping, *, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:

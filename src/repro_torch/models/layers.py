@@ -26,6 +26,8 @@ from torch import nn
 
 from ..kernels import ring_append_kv, ring_decode_attention
 from .config import ModelConfig
+from .sharding_utils import (ambient_mesh, on_local_heads, reduce_partial, ring_on_shards,
+                             shard_ffn, shard_heads, split_heads)
 
 __all__ = [
     "Norm",
@@ -190,28 +192,33 @@ def attention_fwd(
 ) -> torch.Tensor:
     """Full-sequence attention.  x: [B, L, D].  mask: [Lq, Lk] additive.
     ``kv_src`` switches to cross-attention (keys/values from kv_src)."""
-    B, L, _ = x.shape
-    hd = cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     src = x if kv_src is None else kv_src
-    Lk = src.shape[1]
-    q = (x @ p.wq).reshape(B, L, h, hd)
-    k = (src @ p.wk).reshape(B, Lk, kv, hd)
-    v = (src @ p.wv).reshape(B, Lk, kv, hd)
+    q = shard_heads(split_heads(x @ p.wq, h))
+    k = shard_heads(split_heads(src @ p.wk, kv), role="kv")
+    v = shard_heads(split_heads(src @ p.wv, kv), role="kv")
     if p.q_norm is not None:
         q = _rms(q, p.q_norm)
         k = _rms(k, p.k_norm)
     if kv_src is None:  # RoPE only for self-attention
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    g = h // kv
-    q = q.reshape(B, L, kv, g, hd)
+    return on_local_heads(_attend, q, k, v, mask, cfg.attn_softcap) @ p.wo
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+            cap: float) -> torch.Tensor:
+    """softmax(q·k/√hd + mask)·v for q [B, L, h, hd], k/v [B, Lk, kv, hd]
+    (grouped: h/kv query heads per KV head), mask [L, Lk] additive;
+    returns [B, L, h·hd]."""
+    B, L, h, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(B, L, kv, h // kv, hd)
     scores = torch.einsum("blkgd,bmkd->bkglm", q.float(), k.float()) / math.sqrt(hd)
-    scores = softcap(scores, cfg.attn_softcap)
+    scores = softcap(scores, cap)
     scores = scores + mask  # [B,kv,g,L,Lk] + [L,Lk]
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkglm,bmkd->blkgd", w, v).reshape(B, L, h * hd)
-    return out @ p.wo
+    return torch.einsum("bkglm,bmkd->blkgd", w, v).reshape(B, L, -1)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=torch.bfloat16,
@@ -254,20 +261,24 @@ def attention_decode(
     hd = cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     t = cache["t"]
-    q = (x @ p.wq).reshape(B, 1, h, hd)
-    k = (x @ p.wk).reshape(B, 1, kv, hd)
-    v = (x @ p.wv).reshape(B, 1, kv, hd)
+    q = split_heads(x @ p.wq, h)
+    k = split_heads(x @ p.wk, kv)
+    v = split_heads(x @ p.wv, kv)
     if p.q_norm is not None:
         q = _rms(q, p.q_norm)
         k = _rms(k, p.k_norm)
     pos = t.reshape(1)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)  # store rotated keys
-    ring_append_kv(cache["k"], cache["v"], cache["omega"], k, v)  # and ω ← (ω + 1) mod C
-    out = ring_decode_attention(
-        q.reshape(B, h, hd), cache["k"], cache["v"], t,
-        window=int(window or 0), softcap=cfg.attn_softcap,
-    )
+    if ambient_mesh() is None:
+        ring_append_kv(cache["k"], cache["v"], cache["omega"], k, v)  # and ω ← (ω + 1) mod C
+        out = ring_decode_attention(
+            q.reshape(B, h, hd), cache["k"], cache["v"], t,
+            window=int(window or 0), softcap=cfg.attn_softcap,
+        )
+    else:  # each device on its own shard of the ring
+        out = ring_on_shards(q.reshape(B, h, hd), k, v, cache, window=int(window or 0),
+                             softcap=cfg.attn_softcap)
     cache["t"].add_(1)
     return out.reshape(B, 1, h * hd) @ p.wo, cache
 
@@ -306,13 +317,13 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: Optional[in
 def mlp_fwd(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch's to the exact form
     if cfg.mlp == "swiglu":
-        h = F.silu(x @ p.wg) * (x @ p.wi)
+        h = F.silu(shard_ffn(x @ p.wg)) * shard_ffn(x @ p.wi)
     elif cfg.mlp == "geglu":
-        h = F.gelu(x @ p.wg, approximate="tanh") * (x @ p.wi)
+        h = F.gelu(shard_ffn(x @ p.wg), approximate="tanh") * shard_ffn(x @ p.wi)
     elif cfg.mlp == "relu2":  # nemotron squared-ReLU
-        h = torch.relu(x @ p.wi).square()
+        h = torch.relu(shard_ffn(x @ p.wi)).square()
     else:
-        h = F.gelu(x @ p.wi, approximate="tanh")
+        h = F.gelu(shard_ffn(x @ p.wi), approximate="tanh")
     return h @ p.wo
 
 
@@ -346,9 +357,10 @@ def embed_fwd(p: Embed, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: [B, L] or [B, n_codebooks, L] (audio).  Returns [B, L, D]."""
     if cfg.n_codebooks:
         # sum of per-codebook embeddings (MusicGen)
-        x = sum(F.embedding(tokens[:, i, :], p.tok[i]) for i in range(cfg.n_codebooks))
+        x = sum(reduce_partial(F.embedding(tokens[:, i, :], p.tok[i]))
+                for i in range(cfg.n_codebooks))
     else:
-        x = F.embedding(tokens, p.tok[0])
+        x = reduce_partial(F.embedding(tokens, p.tok[0]))
     if cfg.name.startswith("gemma"):
         # JAX rounds the weakly typed scale to x's dtype before multiplying
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()

@@ -34,9 +34,11 @@ block in the backward (``torch.utils.checkpoint``, non-reentrant), and a
 hybrid's whole group body (the shared block and its ``every`` blocks), as
 the reference's ``jax.checkpoint`` does; inference paths are unaffected.
 
-Left out: the reference's ``constrain_activation`` and ``sharding_utils``
-calls are no-ops without a mesh and come with distribution (ROADMAP
-module item 11).
+Under a mesh (``sharding_utils.use_mesh``, with the parameters and the
+batch as DTensors: ``runtime/shardings.py``) the activations are pinned
+where the reference pins them: :func:`constrain_activation` on every
+block's output and the embedding, heads and FFN hiddens in the layers.
+Without a mesh every constraint returns its input unchanged.
 """
 from __future__ import annotations
 
@@ -68,6 +70,8 @@ from .layers import (
     torch_dtype,
 )
 from .moe import MoE, moe_fwd
+from .sharding_utils import (ambient_mesh, constrain, gathered, on_local_heads, reduce_partial,
+                             shard_heads, split_heads)
 from .ssm import SSM, init_ssm_state, ssm_decode, ssm_fwd
 
 __all__ = [
@@ -80,6 +84,7 @@ __all__ = [
     "forward",
     "attention_fwd_chunked",
     "decode_windows",
+    "constrain_activation",
     "CHUNKED_ATTN_THRESHOLD",
 ]
 
@@ -200,6 +205,17 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> DecoderLM:
     return model
 
 
+def constrain_activation(x: torch.Tensor) -> torch.Tensor:
+    """Pin activations to (batch over the data axes, sequence over 'model')
+    under an ambient mesh, each where it divides (Megatron-SP residuals:
+    the stored residuals shard over the model axis too).  The input itself
+    without a mesh, without data axes or below two dims."""
+    mesh = ambient_mesh()
+    if mesh is None or x.ndim < 2 or all(a == "model" for a in mesh.mesh_dim_names):
+        return x
+    return constrain(x, "data", "model" if x.ndim >= 3 else None)
+
+
 def _ring(n: int, cfg: ModelConfig, batch: int, capacity: int, dtype, device
           ) -> Dict[str, torch.Tensor]:
     one = init_cache(cfg, batch, capacity, dtype, device)
@@ -287,7 +303,8 @@ def decode_step(model: DecoderLM, tokens: torch.Tensor, state: DecodeState, *,
     (logits [B, 1, V] / [B, K, 1, V] float32, state), the state updated in
     place.  ``cond_embeds`` [B, Lc, D] feeds every cross-attention."""
     cfg = model.cfg
-    x = embed_fwd(model.embed, cfg, tokens)
+    with gathered(model.embed):
+        x = embed_fwd(model.embed, cfg, tokens)
     cond = cond_embeds.to(x.dtype) if cond_embeds is not None else None
     layers = state["layers"]
     blocks, windows = model.blocks, model.windows
@@ -297,13 +314,17 @@ def decode_step(model: DecoderLM, tokens: torch.Tensor, state: DecodeState, *,
         n_groups, start = _groups(cfg)
         every = cfg.shared_attn_every
         for g in range(n_groups):
-            x = _shared_step(model.shared, cfg, x, x0, _at(state["shared"], g))
+            with gathered(model.shared):
+                x = _shared_step(model.shared, cfg, x, x0, _at(state["shared"], g))
             for l in range(g * every, (g + 1) * every):
-                x = _block_step(blocks[l], cfg, x, _at(layers, l), windows[l], cond)
+                with gathered(blocks[l]):
+                    x = _block_step(blocks[l], cfg, x, _at(layers, l), windows[l], cond)
     for l in range(start, cfg.n_layers):  # every layer, or a hybrid's tail
-        x = _block_step(blocks[l], cfg, x, _at(layers, l), windows[l], cond)
+        with gathered(blocks[l]):
+            x = _block_step(blocks[l], cfg, x, _at(layers, l), windows[l], cond)
     x = norm_fwd(model.final_norm, x)
-    return logits_fwd(model.embed, cfg, x), state
+    with gathered(model.embed):
+        return logits_fwd(model.embed, cfg, x), state
 
 
 def prefill(model: DecoderLM, tokens: torch.Tensor, context: int, *,
@@ -327,28 +348,37 @@ def attention_fwd_chunked(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     block of ``ATTN_Q_BLOCK``, accumulated in float32, each q block's output
     cast to ``x.dtype``.  ``window`` ≥ L disables the window.  Raises where
     L is not a multiple of both block sizes."""
-    B, L, _ = x.shape
+    L = x.shape[1]
     QB, KB = ATTN_Q_BLOCK, ATTN_K_BLOCK
     if L % QB or L % KB:
         raise ValueError(f"chunked attention: L={L} must be a multiple of the q block {QB} "
                          f"and the k block {KB}")
-    hd = cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    g = h // kv
-    q = (x @ p.wq).reshape(B, L, h, hd)
-    k = (x @ p.wk).reshape(B, L, kv, hd)
-    v = (x @ p.wv).reshape(B, L, kv, hd)
+    q = shard_heads(split_heads(x @ p.wq, h))
+    k = shard_heads(split_heads(x @ p.wk, kv), role="kv")
+    v = shard_heads(split_heads(x @ p.wv, kv), role="kv")
     if p.q_norm is not None:
         q = _rms(q, p.q_norm)
         k = _rms(k, p.k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    return on_local_heads(_attend_chunked, q, k, v, window, cfg.attn_softcap) @ p.wo
+
+
+def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+                    cap: float) -> torch.Tensor:
+    """The online-softmax core of :func:`attention_fwd_chunked`: q [B, L,
+    h, hd], k/v [B, L, kv, hd]; returns [B, L, h·hd] in q's dtype."""
+    B, L, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    QB, KB = ATTN_Q_BLOCK, ATTN_K_BLOCK
     scale = 1.0 / math.sqrt(hd)
     nq, nk = L // QB, L // KB
     qb = q.reshape(B, nq, QB, kv, g, hd)
     kb = k.reshape(B, nk, KB, kv, hd)
     vb = v.reshape(B, nk, KB, kv, hd)
-    dev = x.device
+    dev = q.device
 
     outs = []
     for qi in range(nq):
@@ -362,7 +392,7 @@ def attention_fwd_chunked(p: Attention, cfg: ModelConfig, x: torch.Tensor,
             k_j, v_j = kb[:, kj], vb[:, kj]
             k_pos = kj * KB + torch.arange(KB, device=dev)
             s = torch.einsum("bqkgd,bmkd->bkgqm", q_i, k_j.float()) * scale
-            s = softcap(s, cfg.attn_softcap)
+            s = softcap(s, cap)
             ok = (k_pos[None, :] <= q_pos[:, None]) & (q_pos[:, None] - k_pos[None, :] < window)
             s = torch.where(ok, s, -1e30)
             m_new = torch.maximum(m, s.amax(-1))
@@ -372,10 +402,9 @@ def attention_fwd_chunked(p: Attention, cfg: ModelConfig, x: torch.Tensor,
             acc = acc * alpha[..., None] + torch.einsum(
                 "bkgqm,bmkd->bkgqd", pexp.to(v_j.dtype), v_j).float()
             m = m_new
-        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(x.dtype))  # [B,kv,g,QB,hd]
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))  # [B,kv,g,QB,hd]
     out = torch.stack(outs, dim=3).reshape(B, h, L, hd)                       # [B,kv,g,nq,QB,hd]
-    out = out.transpose(1, 2).reshape(B, L, h * hd)
-    return out @ p.wo
+    return out.transpose(1, 2).reshape(B, L, h * hd)
 
 
 def _self_attention(p: Attention, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
@@ -388,21 +417,35 @@ def _self_attention(p: Attention, cfg: ModelConfig, h: torch.Tensor, positions: 
     return attention_fwd(p, cfg, h, positions, mask)
 
 
+def _whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """The SP → full-sequence gather of a block's input, under a mesh: the
+    reference pins it on the normed input before long-sequence attention;
+    DTensor needs the whole block on whole sequences (its products cannot
+    fold a split sequence into their rows, forward or backward), so the
+    residual is gathered on entry and split again by
+    :func:`constrain_activation` on exit.  The input itself without a
+    mesh."""
+    return constrain(x, "data", None, None)
+
+
 def _block_fwd(blk: Block, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                window: int, cond: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _whole_seq(x)
     h = norm_fwd(blk.norm1, x)
     if blk.ssm is not None:
-        return x + ssm_fwd(blk.ssm, cfg, h), aux
-    out = _self_attention(blk.attn, cfg, h, positions, window)
+        return constrain_activation(x + ssm_fwd(blk.ssm, cfg, h)), aux
+    # under a mesh the row-parallel outputs are partial sums over the model
+    # axis: finished before they join the whole-sequence residual
+    out = reduce_partial(_self_attention(blk.attn, cfg, h, positions, window))
     if blk.post_norm1 is not None:
         out = norm_fwd(blk.post_norm1, out)
     x = x + out
     if cond is not None and blk.xattn is not None:
         hx = norm_fwd(blk.norm_x, x)
         zero = torch.zeros((x.shape[1], cond.shape[1]), dtype=torch.float32, device=x.device)
-        x = x + attention_fwd(blk.xattn, cfg, hx, positions, zero, kv_src=cond)
+        x = x + reduce_partial(attention_fwd(blk.xattn, cfg, hx, positions, zero, kv_src=cond))
     h2 = norm_fwd(blk.norm2, x)
     if blk.moe is not None:
         out2, aux = moe_fwd(blk.moe, cfg, h2)
@@ -410,15 +453,16 @@ def _block_fwd(blk: Block, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
         out2 = mlp_fwd(blk.mlp, cfg, h2)
     if blk.post_norm2 is not None:
         out2 = norm_fwd(blk.post_norm2, out2)
-    return x + out2, aux
+    return constrain_activation(x + out2), aux
 
 
 def _shared_block_fwd(p: SharedBlock, cfg: ModelConfig, x: torch.Tensor, x0: torch.Tensor,
                       positions: torch.Tensor, window: int) -> torch.Tensor:
+    x, x0 = _whole_seq(x), _whole_seq(x0)
     h = torch.cat([x, x0], dim=-1) @ p.fuse
-    h = h + _self_attention(p.attn, cfg, norm_fwd(p.norm1, h), positions, window)
-    h = h + mlp_fwd(p.mlp, cfg, norm_fwd(p.norm2, h))
-    return x + h @ p.out
+    h = h + reduce_partial(_self_attention(p.attn, cfg, norm_fwd(p.norm1, h), positions, window))
+    h = h + reduce_partial(mlp_fwd(p.mlp, cfg, norm_fwd(p.norm2, h)))
+    return x + reduce_partial(h @ p.out)
 
 
 def forward(model: DecoderLM, tokens: torch.Tensor, *,
@@ -431,9 +475,11 @@ def forward(model: DecoderLM, tokens: torch.Tensor, *,
     float32, aux_loss) — or the final normed hidden states in place of the
     logits with ``return_hidden``."""
     cfg = model.cfg
-    x = embed_fwd(model.embed, cfg, tokens)
+    with gathered(model.embed):
+        x = embed_fwd(model.embed, cfg, tokens)
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+    x = constrain_activation(x)
     L = x.shape[1]
     positions = torch.arange(L, device=x.device)
     windows = _layer_windows(cfg, L)
@@ -441,7 +487,8 @@ def forward(model: DecoderLM, tokens: torch.Tensor, *,
     remat = cfg.remat and torch.is_grad_enabled()
 
     def block(l, x):
-        return _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
+        with gathered(model.blocks[l]):
+            return _block_fwd(model.blocks[l], cfg, x, positions, windows[l], cond)
 
     def run_block(l, x):
         return checkpoint(block, l, x, use_reentrant=False) if remat else block(l, x)
@@ -455,7 +502,8 @@ def forward(model: DecoderLM, tokens: torch.Tensor, *,
         shared_win = min(cfg.sliding_window, L + 1) if cfg.sliding_window else L + 1
 
         def group(g, x, aux):
-            x = _shared_block_fwd(model.shared, cfg, x, x0, positions, shared_win)
+            with gathered(model.shared):
+                x = _shared_block_fwd(model.shared, cfg, x, x0, positions, shared_win)
             for l in range(g * every, (g + 1) * every):
                 x, a = run_block(l, x)
                 aux = aux + a
@@ -471,15 +519,19 @@ def forward(model: DecoderLM, tokens: torch.Tensor, *,
     x = norm_fwd(model.final_norm, x)
     if return_hidden:
         return x, aux
-    return logits_fwd(model.embed, cfg, x), aux
+    with gathered(model.embed):
+        return logits_fwd(model.embed, cfg, x), aux
 
 
-@torch.inference_mode()
 def prefill_step(model: DecoderLM, tokens: torch.Tensor, *,
                  img_embeds: Optional[torch.Tensor] = None,
                  cond_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Production prefill: the full forward, then the next-token logits of
-    the last position only ([B, 1, V] / [B, K, 1, V])."""
-    hidden, _ = forward(model, tokens, img_embeds=img_embeds, cond_embeds=cond_embeds,
-                        return_hidden=True)
-    return logits_fwd(model.embed, model.cfg, hidden[:, -1:, :])
+    the last position only ([B, 1, V] / [B, K, 1, V]).  Under
+    ``inference_mode``, or ``no_grad`` under a mesh (DTensor parameters
+    cannot run in inference mode)."""
+    with torch.no_grad() if ambient_mesh() is not None else torch.inference_mode():
+        hidden, _ = forward(model, tokens, img_embeds=img_embeds, cond_embeds=cond_embeds,
+                            return_hidden=True)
+        with gathered(model.embed):
+            return logits_fwd(model.embed, model.cfg, _whole_seq(hidden)[:, -1:, :])

@@ -26,6 +26,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import _param, torch_dtype
+from .sharding_utils import constrain, on_batch_rows
 
 __all__ = ["MoE", "Routing", "init_moe", "moe_route", "moe_fwd"]
 
@@ -77,11 +78,15 @@ class Routing(NamedTuple):
 
 
 def moe_route(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> Routing:
-    m = cfg.moe
+    # per sample: under a mesh, on each device's batch rows
+    return on_batch_rows(_route, x, whole=(p.router,), m=cfg.moe)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, m) -> Routing:
     B, L, _ = x.shape
     e, k = m.num_experts, m.top_k
     capacity = max(1, int(math.ceil(m.capacity_factor * L * k / e)))
-    logits = x.float() @ p.router.float()                          # [B, L, e]
+    logits = x.float() @ router.float()                            # [B, L, e]
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[..., :k], idx[..., :k]              # [B, L, k]
@@ -104,40 +109,64 @@ def _expert_ffn(p: MoE, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
         h = torch.relu(torch.bmm(xe, p.wi)).square()
     else:
         h = F.gelu(torch.bmm(xe, p.wi), approximate="tanh")
+    h = constrain(h, "model", "data", None)  # experts over model, (batch, slot) rows over data
     return torch.bmm(h, p.wo)
 
 
+def _dispatch(x: torch.Tensor, gate_idx: torch.Tensor, pos_c: torch.Tensor, e: int, cap: int
+              ) -> torch.Tensor:
+    """Scatter-add every choice of ``x [B, L, D]`` into its (b, expert,
+    position) row: ``[B, e, cap, D]``, the drop slot cut off."""
+    B, L, D = x.shape
+    rows = torch.arange(B, device=x.device)[:, None, None] * e + gate_idx  # (b, expert)
+    buf = x.new_zeros((B * e * (cap + 1), D))
+    slot = rows * (cap + 1) + pos_c
+    xf = x.reshape(B * L, D)
+    for j in range(gate_idx.shape[-1]):
+        buf.index_add_(0, slot[:, :, j].reshape(-1), xf)
+    return buf.view(B, e, cap + 1, D)[:, :, :cap]
+
+
+def _combine(out_e: torch.Tensor, gate_idx: torch.Tensor, pos_c: torch.Tensor,
+             gate_vals: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Gather-accumulate the k choices of each token from ``out_e [B, e,
+    cap, D]``, dropped ones with weight 0: ``[B, L, D]``."""
+    B, e, cap, D = out_e.shape
+    L = gate_idx.shape[1]
+    flat = out_e.reshape(B * e * cap, D)
+    rows = torch.arange(B, device=out_e.device)[:, None, None] * e + gate_idx
+    w = (gate_vals * keep.float()).to(flat.dtype)                  # [B, L, k]
+    src = rows * cap + torch.clamp(pos_c, max=cap - 1)
+    y = torch.zeros((B, L, D), dtype=flat.dtype, device=out_e.device)
+    for j in range(gate_idx.shape[-1]):
+        y = y + flat[src[:, :, j]] * w[:, :, j:j + 1]
+    return y
+
+
+def _choices(gate_idx: torch.Tensor, e: int) -> torch.Tensor:
+    return F.one_hot(gate_idx, e).float().sum(2)                   # [B, L, e]
+
+
 def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, L, D] → (y, aux_loss).  Per-sample capacity-bounded top-k."""
+    """x: [B, L, D] → (y, aux_loss).  Per-sample capacity-bounded top-k.
+    Under a mesh the routing, the dispatch and the combine (index
+    scatters and gathers, which DTensor cannot shard) run on each device's
+    batch rows; the expert FFN runs on DTensors in the EP layout."""
     m = cfg.moe
     B, L, D = x.shape
     e, k = m.num_experts, m.top_k
     r = moe_route(p, cfg, x)
     cap = r.capacity
-    rows = torch.arange(B, device=x.device)[:, None, None] * e + r.gate_idx  # (b, expert)
-
-    # dispatch: scatter-add every choice into its (b, expert, position) row
-    buf = x.new_zeros((B * e * (cap + 1), D))
-    slot = rows * (cap + 1) + r.pos_c
-    xf = x.reshape(B * L, D)
-    for j in range(k):
-        buf.index_add_(0, slot[:, :, j].reshape(-1), xf)
-    disp = buf.view(B, e, cap + 1, D)[:, :, :cap]                  # [B, e, cap, D]
+    disp = on_batch_rows(_dispatch, x, r.gate_idx, r.pos_c, e=e, cap=cap)  # [B, e, cap, D]
+    disp = constrain(disp, "data", "model", None, None)            # EP layout
 
     # expert FFN over [B, e, cap, D]
     xe = disp.permute(1, 0, 2, 3).reshape(e, B * cap, D)
     out_e = _expert_ffn(p, cfg, xe).reshape(e, B, cap, D).permute(1, 0, 2, 3)
-    flat = out_e.reshape(B * e * cap, D)
-
-    # combine: gather-accumulate the k choices, dropped ones with weight 0
-    w = (r.gate_vals * r.keep.float()).to(flat.dtype)              # [B, L, k]
-    src = rows * cap + torch.clamp(r.pos_c, max=cap - 1)
-    y = torch.zeros((B, L, D), dtype=flat.dtype, device=x.device)
-    for j in range(k):
-        y = y + flat[src[:, :, j]] * w[:, :, j:j + 1]
+    y = on_batch_rows(_combine, out_e, r.gate_idx, r.pos_c, r.gate_vals, r.keep)
 
     # load-balancing aux loss (Switch): e · Σ_e f_e · P_e
     me = r.probs.reshape(-1, e).mean(0)
-    ce = F.one_hot(r.gate_idx, e).float().sum(2).reshape(-1, e).mean(0) / k
+    ce = on_batch_rows(_choices, r.gate_idx, e=e).reshape(-1, e).mean(0) / k
     aux = e * torch.sum(me * ce) * m.aux_loss_weight
     return y.to(x.dtype), aux

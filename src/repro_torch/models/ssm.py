@@ -30,6 +30,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import _param, torch_dtype
+from .sharding_utils import constrain, like, on_batch_rows
 
 __all__ = ["SSM", "init_ssm", "ssm_fwd", "ssm_decode", "init_ssm_state"]
 
@@ -99,7 +100,7 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.
 def ssm_fwd(p: SSM, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD.  u: [B, L, D] → [B, L, D].  Raises where L is not a
     multiple of ``min(cfg.ssm.chunk, L)``."""
-    s, d_inner, nh, conv_dim = _dims(cfg)
+    s, _, _, conv_dim = _dims(cfg)
     B_, L, _ = u.shape
     Q = min(s.chunk, L)
     if L % Q:
@@ -112,6 +113,20 @@ def ssm_fwd(p: SSM, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     xp = torch.cat([pad, xbc], dim=1)
     conv = sum(xp[:, i:i + L, :] * p.conv_w[i] for i in range(s.d_conv)) + p.conv_b
     conv = F.silu(conv.float()).to(u.dtype)
+    conv = constrain(conv, "data", None, "model")
+    # per sample: under a mesh, on each device's batch rows, heads whole
+    y = on_batch_rows(_ssd, conv, dt, whole=(p.dt_bias, p.A_log, p.D_skip), cfg=cfg)
+    return _gated_norm(y, z, p.norm) @ p.out_proj
+
+
+def _ssd(conv: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+         D_skip: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The chunked SSD scan of :func:`ssm_fwd` over the activated conv
+    stream ``conv [B, L, conv_dim]`` and the raw ``dt [B, L, nh]``; returns
+    ``y [B, L, d_inner]`` in conv's dtype."""
+    s, d_inner, nh, _ = _dims(cfg)
+    B_, L, _ = conv.shape
+    Q = min(s.chunk, L)
     gn = s.n_groups * s.d_state
     x, Bc, Cc = torch.split(conv, [d_inner, gn, gn], dim=-1)
     x = x.reshape(B_, L, nh, s.head_dim)
@@ -119,8 +134,8 @@ def ssm_fwd(p: SSM, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     Cc = Cc.reshape(B_, L, s.n_groups, s.d_state)
     heads_per_group = nh // s.n_groups
 
-    dt = F.softplus(dt.float() + p.dt_bias)  # [B, L, nh]
-    A = -torch.exp(p.A_log)                   # [nh] < 0, in the leaf's dtype
+    dt = F.softplus(dt.float() + dt_bias)     # [B, L, nh]
+    A = -torch.exp(A_log)                     # [nh] < 0, in the leaf's dtype
     a = dt * A                                # log decay, float32
 
     nchunks = L // Q
@@ -129,9 +144,9 @@ def ssm_fwd(p: SSM, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     Ccc = Cc.reshape(B_, nchunks, Q, s.n_groups, s.d_state)
     ac = a.reshape(B_, nchunks, Q, nh)
     dtc = dt.reshape(B_, nchunks, Q, nh)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=conv.device))
 
-    state = torch.zeros((B_, nh, s.head_dim, s.d_state), dtype=torch.float32, device=u.device)
+    state = torch.zeros((B_, nh, s.head_dim, s.d_state), dtype=torch.float32, device=conv.device)
     ys = []
     for c in range(nchunks):
         xq = xc[:, c].float()
@@ -162,9 +177,8 @@ def ssm_fwd(p: SSM, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
             "bjhn,bjhp->bhpn", Bh * decay_out[..., None], xdt)
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)                                      # [B, L, nh, P]
-    y = y + p.D_skip[None, None, :, None] * x.float()
-    y = y.reshape(B_, L, d_inner).to(u.dtype)
-    return _gated_norm(y, z, p.norm) @ p.out_proj
+    y = y + D_skip[None, None, :, None] * x.float()
+    return y.reshape(B_, L, d_inner).to(conv.dtype)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None
@@ -182,8 +196,6 @@ def ssm_decode(p: SSM, cfg: ModelConfig, u: torch.Tensor, state: Dict[str, torch
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence.  u: [B, 1, D].  ``state`` (``conv``, ``ssm``)
     is updated in place and returned."""
-    s, d_inner, nh, conv_dim = _dims(cfg)
-    B_ = u.shape[0]
     proj = u[:, 0, :] @ p.in_proj                                  # [B, in_dim]
     z, xbc, dt = _split_proj(cfg, proj)
     conv_state = state["conv"]
@@ -191,6 +203,23 @@ def ssm_decode(p: SSM, cfg: ModelConfig, u: torch.Tensor, state: Dict[str, torch
     wide = torch.promote_types(hist.dtype, p.conv_w.dtype)         # float32, as in JAX
     conv = torch.einsum("bkc,kc->bc", hist.to(wide), p.conv_w.to(wide)) + p.conv_b
     conv = F.silu(conv.float()).to(u.dtype)
+    conv = constrain(conv, "data", None, "model")
+    y, S = on_batch_rows(_ssm_step, conv, dt, state["ssm"],
+                         whole=(p.dt_bias, p.A_log, p.D_skip), cfg=cfg)
+    out = _gated_norm(y, z[:, None, :], p.norm) @ p.out_proj
+    conv_state.copy_(like(hist[:, 1:, :], conv_state))
+    state["ssm"].copy_(like(S, state["ssm"]))
+    return out, state
+
+
+def _ssm_step(conv: torch.Tensor, dt: torch.Tensor, ssm: torch.Tensor, dt_bias: torch.Tensor,
+              A_log: torch.Tensor, D_skip: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence of :func:`ssm_decode` over the activated ``conv [B,
+    conv_dim]``, the raw ``dt [B, nh]`` and the state ``ssm [B, nh, P,
+    N]``: (``y [B, 1, d_inner]`` in conv's dtype, the new state)."""
+    s, d_inner, nh, _ = _dims(cfg)
+    B_ = conv.shape[0]
     gn = s.n_groups * s.d_state
     x, Bc, Cc = torch.split(conv, [d_inner, gn, gn], dim=-1)
     x = x.reshape(B_, nh, s.head_dim).float()
@@ -199,14 +228,10 @@ def ssm_decode(p: SSM, cfg: ModelConfig, u: torch.Tensor, state: Dict[str, torch
     heads_per_group = nh // s.n_groups
     Bh = torch.repeat_interleave(Bc, heads_per_group, dim=1)       # [B,nh,N]
     Ch = torch.repeat_interleave(Cc, heads_per_group, dim=1)
-    dt = F.softplus(dt.float() + p.dt_bias)                        # [B,nh]
-    A = -torch.exp(p.A_log)
+    dt = F.softplus(dt.float() + dt_bias)                          # [B,nh]
+    A = -torch.exp(A_log)
     decay = torch.exp(dt * A)                                      # [B,nh]
-    S = state["ssm"] * decay[:, :, None, None] + (
+    S = ssm * decay[:, :, None, None] + (
         (x * dt[..., None])[..., None] * Bh[:, :, None, :])        # [B,nh,P,N]
-    y = torch.einsum("bhn,bhpn->bhp", Ch, S) + p.D_skip[None, :, None] * x
-    y = y.reshape(B_, 1, d_inner).to(u.dtype)
-    out = _gated_norm(y, z[:, None, :], p.norm) @ p.out_proj
-    conv_state.copy_(hist[:, 1:, :])
-    state["ssm"].copy_(S)
-    return out, state
+    y = torch.einsum("bhn,bhpn->bhp", Ch, S) + D_skip[None, :, None] * x
+    return y.reshape(B_, 1, d_inner).to(conv.dtype), S

@@ -1,6 +1,7 @@
 """Optimizers of the port: AdamW, Adafactor, clipping, schedule, int8
 error-feedback compression (the counterpart of ``repro.optim``)."""
-from .compression import init_error_state, int8_decompress, int8_error_feedback_compress
+from .compression import (compressed_psum, init_error_state, int8_decompress,
+                          int8_error_feedback_compress)
 from .optimizers import (
     OptState,
     adafactor,
@@ -19,5 +20,6 @@ __all__ = [
     "make_optimizer",
     "int8_error_feedback_compress",
     "int8_decompress",
+    "compressed_psum",
     "init_error_state",
 ]

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..models import tree
+from ..models.sharding_utils import reduce_partial
 
 __all__ = [
     "OptState",
@@ -154,16 +155,16 @@ def adafactor(lr: Union[Schedule, float], decay: float = 0.8, eps: float = 1e-30
             p = tree.stacked(leaf, params).to(torch.float32)
             s = state.inner[key]
             g2 = gf.square() + eps
-            if leaf.ndim >= 2:
-                vr = s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(-1))
-                vc = s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(-2))
-                denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            if leaf.ndim >= 2:  # (means over a split dim finished before the blend)
+                vr = s["vr"].copy_(beta * s["vr"] + (1 - beta) * reduce_partial(g2.mean(-1)))
+                vc = s["vc"].copy_(beta * s["vc"] + (1 - beta) * reduce_partial(g2.mean(-2)))
+                denom = torch.clamp(reduce_partial(vr.mean(-1, keepdim=True)), min=eps)
                 u = gf * torch.rsqrt(vr[..., None] / denom[..., None])
                 u = u * torch.rsqrt(vc[..., None, :])
             else:
                 v = s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = gf * torch.rsqrt(v)
-            rms = torch.sqrt(u.square().mean() + 1e-30)  # over the whole stacked leaf
+            rms = torch.sqrt(reduce_partial(u.square().mean()) + 1e-30)  # the whole stacked leaf
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay and leaf.ndim >= 2:
                 u = u + weight_decay * p

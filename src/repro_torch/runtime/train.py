@@ -23,6 +23,7 @@ from ..models import tree
 from ..models.config import ModelConfig
 from ..models.layers import Embed, logits_fwd, torch_dtype
 from ..models.model import DecoderLM, decode_step, forward, init_model
+from ..models.sharding_utils import constrain, gathered, splits, vocab_parallel_logp
 from ..optim import OptState, clip_by_global_norm, cosine_schedule, make_optimizer
 
 __all__ = [
@@ -66,10 +67,13 @@ def cross_entropy_chunked(embed: Embed, cfg: ModelConfig, hidden: torch.Tensor,
         chunk -= 1  # largest divisor ≤ requested
 
     def piece(h_c: torch.Tensor, y_c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = logits_fwd(embed, cfg, h_c).to(torch.float32)  # [B, c, V] or [B, K, c, V]
+        with gathered(embed):
+            logits = logits_fwd(embed, cfg, h_c).to(torch.float32)  # [B, c, V] or [B, K, c, V]
         mask = (y_c != -100).to(torch.float32)
         y = torch.clamp(y_c, 0, cfg.vocab - 1).long()[..., None]
-        if mode == "gather":
+        if splits(logits, logits.ndim - 1) > 1:  # both modes, vocab-parallel
+            picked = vocab_parallel_logp(logits, y)
+        elif mode == "gather":
             picked = torch.log_softmax(logits, dim=-1).gather(-1, y)[..., 0]
         else:
             m = logits.amax(-1).detach()
@@ -77,6 +81,9 @@ def cross_entropy_chunked(embed: Embed, cfg: ModelConfig, hidden: torch.Tensor,
             picked = logits.gather(-1, y)[..., 0] - m - torch.log(se)
         return -(picked * mask).sum(), mask.sum()
 
+    # under a mesh: the sequence whole, so the chunks slice locally and the
+    # logits split by vocab
+    hidden = constrain(hidden, "data", None, None)
     remat = torch.is_grad_enabled()
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     n = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -115,7 +122,8 @@ def init_train_state(cfg: ModelConfig, optimizer: str = "adamw", peak_lr: float 
 
 def make_train_step(cfg: ModelConfig, opt_update: Callable, *, grad_clip: float = 1.0,
                     vocab_chunk: int = 512, microbatches: int = 1,
-                    grad_dtype: str = "float32", ce_mode: str = "onehot"):
+                    grad_dtype: str = "float32", grad_shardings: Optional[Mapping] = None,
+                    ce_mode: str = "onehot"):
     """Returns train_step(state, batch) → (state, metrics); the state is
     updated in place.
 
@@ -125,6 +133,10 @@ def make_train_step(cfg: ModelConfig, opt_update: Callable, *, grad_clip: float 
     batch), and ``ce``, ``aux`` and ``tokens`` are the last microbatch's.
     ``grad_dtype="bfloat16"`` keeps the gradients and the accumulator in
     bfloat16; clipping and the optimizer still compute in float32.
+    ``grad_shardings`` (DTensor placements by parameter name,
+    ``runtime.shardings.param_placements``) pins the gradients and the
+    accumulator of a model on a mesh to their parameters' placements:
+    left to DTensor, a gradient can come out partial or replicated.
     Metrics are 0-dim tensors on the device (``loss``, ``grad_norm``,
     ``ce``, ``aux``, ``tokens``)."""
     loss_fn = make_loss_fn(cfg, vocab_chunk, ce_mode)
@@ -136,7 +148,12 @@ def make_train_step(cfg: ModelConfig, opt_update: Callable, *, grad_clip: float 
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = {n: (torch.zeros_like(p) if g is None else g).to(gdt)
                  for n, p, g in zip(names, params, grads)}
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, pin(grads)
+
+    def pin(grads):
+        if grad_shardings is None:
+            return grads
+        return {n: g.redistribute(g.device_mesh, grad_shardings[n]) for n, g in grads.items()}
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model = state.model
@@ -147,14 +164,12 @@ def make_train_step(cfg: ModelConfig, opt_update: Callable, *, grad_clip: float 
             if B % microbatches:
                 raise ValueError(f"batch {B} does not split into {microbatches} microbatches")
             mb = B // microbatches
-            grads = {n: torch.zeros(p.shape, dtype=gdt, device=p.device)
-                     for n, p in model.named_parameters()}
+            grads = pin({n: torch.zeros_like(p, dtype=gdt) for n, p in model.named_parameters()})
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(microbatches):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 l_i, metrics, g_i = single(model, part)
-                for n, g in g_i.items():
-                    grads[n] = (grads[n] + g).to(gdt)
+                grads = pin({n: (grads[n] + g).to(gdt) for n, g in g_i.items()})
                 loss = loss + l_i
             grads = {n: g / microbatches for n, g in grads.items()}
             loss = loss / microbatches

@@ -17,7 +17,10 @@ family's attention shape), each model family's smoke configuration
 served on the card against the CPU, and training: the bf16 vocabulary
 product's forward and backward against the float32 product, a train step
 card = CPU, and a checkpoint of card tensors taken while the next step
-runs.  This file imports no JAX: the card's host has none.
+runs, and distribution: ``compressed_psum`` over NCCL on card tensors
+against the CPU over gloo, bit for bit, and the compressed step at one
+NCCL rank against the uncompressed step.  This file imports no JAX: the
+card's host has none.
 """
 import os
 import sys
@@ -734,3 +737,73 @@ def test_checkpoint_of_card_state_taken_while_the_next_step_runs(device, tmp_pat
     assert want["params/blocks/attn/wq"].dtype == torch.bfloat16
     load_state_tree(state, restore_pytree(str(tmp_path), 1, state_tree(state, template=True)))
     assert int(state.opt.step) == 1
+
+
+# ------------------------------------------------------------- distribution
+@pytest.fixture
+def nccl_one(device, tmp_path):
+    """An NCCL group of one rank on the card (a file store under
+    ``tmp_path``) and a gloo group over the same rank, closed afterwards."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=device)
+    try:
+        yield dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_psum_of_card_tensors_equals_cpu(device, nccl_one):
+    """``compressed_psum`` over NCCL on card tensors gives the CPU's result
+    over gloo bit for bit: int8 values, scale, mean and residual; the card
+    tensors never leave the card."""
+    from repro_torch.optim import compressed_psum, int8_error_feedback_compress
+
+    gen = torch.Generator().manual_seed(3)
+    for shape in ((257,), (28, 1024, 3072), (3, 5, 7)):
+        g = torch.randn(shape, generator=gen) * 5
+        e = torch.randn(shape, generator=gen) * 0.01
+        cq, cs, ce = int8_error_feedback_compress(g.to(device), e.to(device))
+        q, s, r = int8_error_feedback_compress(g, e)
+        assert torch.equal(cq.cpu(), q) and torch.equal(cs.cpu(), s) and torch.equal(ce.cpu(), r)
+        cm, cr = compressed_psum(g.to(device), e.to(device))
+        m, r = compressed_psum(g, e, group=nccl_one)
+        assert cm.is_cuda and cr.is_cuda
+        assert torch.equal(cm.cpu(), m) and torch.equal(cr.cpu(), r)
+
+
+def test_compressed_step_at_one_nccl_rank_matches_uncompressed(device, nccl_one):
+    """Qwen3 smoke, one NCCL rank: the int8 compressed step against the
+    uncompressed step from the same state, within the reference's bounds
+    (loss relative 1e-5, parameters within 5e-3); the residual is not 0.
+    Those bounds hold for any finite update (AdamW's first step moves each
+    weight by about lr), so the step's reduction is also held, leaf by
+    leaf, against the plain gradients quantized and dequantized apart from
+    the step (``chip_smoke.check_reduction``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import tree
+    from repro_torch.runtime import make_compressed_dp_train_step, make_train_step
+    from repro_torch.runtime.train import init_train_state
+
+    cfg = get_config("qwen3-0.6b").smoke
+    batch = make_batch(cfg, 64, 4, device=device)
+    comp, upd = init_train_state(cfg, device=device)
+    plain, _ = init_train_state(cfg, device=device)
+    rec = {}
+    init_cs, cstep = make_compressed_dp_train_step(cfg, chip_smoke.capturing(upd, rec))
+    cs = init_cs(comp)
+    want = chip_smoke.reduction_reference(cfg, plain.model, batch, cs.err)
+    with chip_smoke.recording_reduction(rec):
+        cs, cm = cstep(cs, batch)
+    chip_smoke.check_reduction(cfg, want, rec, cs.err, cm["grad_norm"])
+    _, pm = make_train_step(cfg, upd)(plain, batch)
+    assert float(cm["loss"]) == pytest.approx(float(pm["loss"]), rel=1e-5)
+    a, b = dict(cs.model.named_parameters()), dict(plain.model.named_parameters())
+    with torch.no_grad():
+        for key, leaf in tree.layout(cfg).items():
+            d = (tree.stacked(leaf, a) - tree.stacked(leaf, b)).abs().max()
+            assert float(d) < 5e-3, key
+    assert all(e.is_cuda for e in cs.err.values())
+    assert sum(float(e.abs().sum()) for e in cs.err.values()) > 0

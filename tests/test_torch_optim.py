@@ -220,10 +220,17 @@ def test_int8_compress_matches_reference_and_error_state():
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_allclose(float(ts), float(js), rtol=1e-7)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=1e-6)
-    _, tcfg = smoke("qwen3-0.6b")
+    jcfg, tcfg = smoke("qwen3-0.6b")
     from repro_torch.models.model import init_model
 
     model = init_model(tcfg, device=CPU)
     errs = topt.init_error_state(model)
-    assert set(errs) == {n for n, _ in model.named_parameters()}
-    assert all(e.dtype == torch.float32 and not e.any() for e in errs.values())
+    # one residual per leaf of the reference's tree, in its stacked shape
+    from repro.optim.compression import init_error_state
+
+    jerrs = init_error_state(JM.init_model(jax.random.PRNGKey(0), jcfg))
+    jflat = {".".join(str(getattr(p, "key", p)) for p in path): leaf
+             for path, leaf in jax.tree_util.tree_flatten_with_path(jerrs)[0]}
+    assert set(errs) == set(jflat)
+    for k, e in errs.items():
+        assert tuple(e.shape) == jflat[k].shape and e.dtype == torch.float32 and not e.any()
